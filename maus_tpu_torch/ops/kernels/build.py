@@ -1,0 +1,89 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``maus_tpu_torch/csrc/`` have a plain C interface; they are
+compiled with ``nvcc`` into one shared library in ``maus_tpu_torch/_build/``
+(listed in ``.gitignore``) at the first CUDA use and loaded with ``ctypes``.
+The library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt. Nothing here runs at import time, and nothing falls back:
+a missing ``nvcc`` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("true_residual.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def find_nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
+                       "maus_tpu_torch are built from source at first use")
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libmaus_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build(force: bool = False) -> str:
+    """Compile the sources into the shared library (if not built yet, or
+    always with ``force``) and return its path. The library is written to a
+    temporary name and renamed into place, so a process never loads a file
+    that another process is still writing."""
+    path = _library_path()
+    if os.path.exists(path) and not force:
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(CSRC, s) for s in SOURCES]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.maus_true_residual
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

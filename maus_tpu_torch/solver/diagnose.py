@@ -1,0 +1,277 @@
+"""Matrix diagnosis, run once before the evolution loop.
+
+Counterpart of ``maus_tpu/solver/diagnose.py``: density, Hermitian and
+complex-symmetric structure, positive definiteness, and a condition estimate
+(exact on the host for small operands, an on-device power / inverse-power
+probe otherwise). The results are plain Python values.
+
+Not carried over: the probe's TPU fallbacks (exact-slicing bf16 matvecs, and
+complex64 IR residuals past the ladder limit with their widened gate) — the
+card has native FP64, so the probe's matvecs are complex128 at any size.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.types import ProblemKnowledge, ProblemType
+
+
+def _to_dense_numpy(A) -> np.ndarray:
+    """Accept numpy arrays and scipy.sparse matrices; return a dense ndarray."""
+    if hasattr(A, "toarray"):
+        return np.asarray(A.toarray())
+    return np.asarray(A)
+
+
+def estimate_cond(A: np.ndarray, exact_below: int = 512, iters: int = 30) -> float:
+    """2-norm condition estimate on the host: exact SVD for small matrices,
+    power / inverse-power iteration on AᴴA above ``exact_below``."""
+    n = min(A.shape)
+    if n == 0:
+        return 1.0
+    if max(A.shape) <= exact_below:
+        try:
+            c = np.linalg.cond(A)
+            return float(c) if np.isfinite(c) else np.inf
+        except np.linalg.LinAlgError:
+            return np.inf
+    rng_ = np.random.default_rng(0)
+    x = rng_.standard_normal(A.shape[1]) + 1j * rng_.standard_normal(A.shape[1])
+    for _ in range(iters):
+        x = A.conj().T @ (A @ x)
+        nx = np.linalg.norm(x)
+        if nx == 0:
+            return np.inf
+        x /= nx
+    smax = float(np.sqrt(np.linalg.norm(A.conj().T @ (A @ x))))
+    try:
+        import scipy.linalg as sla
+        y = rng_.standard_normal(A.shape[1]) + 1j * rng_.standard_normal(A.shape[1])
+        if A.shape[0] == A.shape[1]:
+            lu_piv = sla.lu_factor(A)
+
+            def gram_inv(z):          # (AᴴA)⁻¹ z = A⁻¹ (A⁻ᴴ z)
+                return sla.lu_solve(lu_piv, sla.lu_solve(lu_piv, z, trans=2))
+        else:
+            lu_piv = sla.lu_factor(A.conj().T @ A)
+
+            def gram_inv(z):
+                return sla.lu_solve(lu_piv, z)
+        for _ in range(iters):
+            y = gram_inv(y)
+            ny = np.linalg.norm(y)
+            if not np.isfinite(ny) or ny == 0:
+                return np.inf
+            y /= ny
+        sminsq_inv = np.linalg.norm(gram_inv(y))
+        smin = float(np.sqrt(1.0 / sminsq_inv)) if sminsq_inv > 0 else 0.0
+    except (np.linalg.LinAlgError, ValueError):
+        return np.inf
+    return smax / smin if smin > 0 else np.inf
+
+
+# ---------------------------------------------------------------------------
+# On-device condition probe: no host LAPACK for large N
+# ---------------------------------------------------------------------------
+
+def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
+                       inv_iters: int = 6, ir_steps: int = 10):
+    """(σ_max, amplification g ≈ 1/σ_min², first-solve backward residual,
+    final IR residual) from one working-dtype QR plus O(N²) iterations.
+
+    The IR residuals double as a conditioning signal: a backward-stable
+    working-dtype solve leaves an FP64-measured relative residual ≈ ε·κ(A),
+    which keeps growing past the point where the inverse-power estimate
+    floors at the factorization's accuracy."""
+    n = A.shape[0]
+    dev = A.device
+    rdt = A.real.dtype
+    c128 = torch.complex128
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def vnorm(z):
+        return torch.linalg.vector_norm(z)
+
+    x = torch.complex(torch.randn(n, generator=g, dtype=rdt, device=dev),
+                      torch.randn(n, generator=g, dtype=rdt, device=dev)).to(A.dtype)
+    x = x / vnorm(x)
+    for _ in range(power_iters):
+        z = A.mH @ (A @ x)
+        x = z / torch.clamp_min(vnorm(z), 1e-30)
+    smax = torch.sqrt(vnorm(A.mH @ (A @ x)))
+
+    q, r = torch.linalg.qr(A)
+
+    def qr_solve(b):                    # A x = b
+        y = (q.mH @ b[:, None])
+        return torch.linalg.solve_triangular(r, y, upper=True)[:, 0]
+
+    def qr_solve_adj(b):                # Aᴴ x = b
+        y = torch.linalg.solve_triangular(r.mH, b[:, None], upper=False)
+        return (q @ y)[:, 0]
+
+    A64 = A.to(c128)
+
+    def mv(z):
+        return A64 @ z
+
+    def mv_adj(z):
+        return A64.mH @ z
+
+    def _ir(b, matvec, solve):
+        """Solve to FP64 accuracy with the working-dtype factorization;
+        returns (x, rel_first, rel_final)."""
+        bnorm = torch.clamp_min(vnorm(b), 1e-300)
+        xc = solve(b.to(A.dtype)).to(c128)
+        rel = vnorm(b - matvec(xc)) / bnorm
+        rel_first = rel
+        for _ in range(ir_steps):
+            d = solve((b - matvec(xc)).to(A.dtype))
+            x2 = xc + d.to(c128)
+            rel2 = vnorm(b - matvec(x2)) / bnorm
+            xc = torch.where(rel2 < rel, x2, xc)
+            rel = torch.minimum(rel2, rel)
+        return xc, rel_first, rel
+
+    y = torch.complex(torch.randn(n, generator=g, dtype=torch.float64, device=dev),
+                      torch.randn(n, generator=g, dtype=torch.float64, device=dev))
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    gamp, rel_first, rel_final = zero + 1.0, zero, zero
+    for _ in range(inv_iters):
+        y = y / torch.clamp_min(vnorm(y), 1e-300)
+        u, rf1, rl1 = _ir(y, mv_adj, qr_solve_adj)
+        y, rf2, rl2 = _ir(u, mv, qr_solve)
+        gamp = vnorm(y)
+        # later right-hand sides align with the smallest singular direction,
+        # which maximizes the ε·κ backward-residual signal
+        rel_first = torch.maximum(rel_first, torch.maximum(rf1, rf2))
+        rel_final = torch.maximum(rel_final, torch.maximum(rl1, rl2))
+    return smax.double(), gamp, rel_first, rel_final
+
+
+def estimate_cond_device(A: torch.Tensor) -> float:
+    """Condition estimate computed on the operand's device (one
+    working-dtype QR plus O(N²) iterations)."""
+    out = torch.stack(_cond_probe_device(A)).cpu().numpy()
+    smax, g, rel_final = float(out[0]), float(out[1]), float(out[3])
+    if not (np.isfinite(smax) and np.isfinite(g)) or g <= 0:
+        return np.inf
+    cond_lo = smax * np.sqrt(g)      # √g → 1/σ_min as inverse power converges
+    # "resolved" ⇔ the mixed-precision IR drove the solve residual to the
+    # FP64 residual arithmetic's floor; then √g is trustworthy. Beyond
+    # κ ≈ 1/ε of the working dtype the factorization cannot tell κ=1e10 from
+    # singular, and the honest answer is ∞ (Critical regime).
+    gate = max(1e-6, 100.0 * float(np.finfo(np.float64).eps))
+    return cond_lo if rel_final <= gate else np.inf
+
+
+def _structure_probe(Ad: torch.Tensor):
+    """(hermitian defect, symmetric defect, nnz), computed on the device."""
+    dh = float((Ad - Ad.mH).abs().max())
+    ds = float((Ad - Ad.T).abs().max())
+    nnz = int(torch.count_nonzero(Ad.abs() > 1e-12))
+    return dh, ds, nnz
+
+
+def _chol_ok_dev(Ad: torch.Tensor) -> bool:
+    _, info = torch.linalg.cholesky_ex(Ad)
+    return int(info) == 0
+
+
+def _classify_host(Ad: np.ndarray):
+    """Structure flags from the host data (1e-9 absolute tolerance)."""
+    herm = bool(np.allclose(Ad, Ad.conj().T, atol=1e-9))
+    sym = not herm and np.iscomplexobj(Ad) and bool(np.allclose(Ad, Ad.T, atol=1e-9))
+    pd = False
+    if herm:
+        try:
+            np.linalg.cholesky(Ad)
+            pd = True
+        except np.linalg.LinAlgError:
+            pd = False
+    return herm, sym, pd
+
+
+def _classify_device(exact: torch.Tensor, working: torch.Tensor):
+    """(nnz, flags) from a device copy that carries the exact data; the
+    Cholesky probe runs on the working copy, which the solver factorizes."""
+    dh, ds, nnz = _structure_probe(exact)
+    herm = dh <= 1e-9
+    sym = not herm and ds <= 1e-9
+    return nnz, (herm, sym, herm and _chol_ok_dev(working))
+
+
+def diagnose(A, problem_type: ProblemType,
+             sparse_density_threshold: float = 0.25,
+             device_operand: torch.Tensor = None,
+             device_full: torch.Tensor = None,
+             device_exact: bool = False) -> ProblemKnowledge:
+    """Classify a square operand (reference ``_diagnose_matrix_initial``).
+
+    ``A``: the host operand, or ``None`` when the operand exists only on the
+    device (a tensor input). ``device_operand``: the working-dtype copy on
+    the device; the condition estimate runs on it for large N.
+    ``device_full``: the full-precision complex128 device copy of a
+    complex128 input whose working copy is rounded; structure is then
+    measured on the exact data. ``device_exact``: the working copy IS the
+    user's exact data (float32/complex64 input)."""
+    if problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
+        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+    if A is None:
+        if device_operand is None:
+            raise ValueError("diagnose needs either a host operand or "
+                             "device_operand")
+        was_sparse = False
+        Ad = None
+        if device_operand.ndim != 2:
+            raise ValueError(f"expected a 2-D operand, got shape "
+                             f"{tuple(device_operand.shape)}")
+        m, n = device_operand.shape
+    else:
+        was_sparse = hasattr(A, "toarray")
+        Ad = _to_dense_numpy(A)
+        if Ad.ndim != 2:
+            raise ValueError(f"expected a 2-D operand, got shape {Ad.shape}")
+        m, n = Ad.shape
+    if m != n:
+        raise ValueError(f"SOLVE_LINEAR_SYSTEM requires a square matrix, "
+                         f"got {(m, n)}")
+    big = m * n > 10_000_000
+    # (is_hermitian, is_complex_symmetric, is_positive_definite)
+    flags = (False, False, False)
+    if device_full is not None:
+        nnz, flags = _classify_device(device_full, device_operand)
+    elif device_operand is not None and (device_exact or not big):
+        if device_exact or Ad is None:
+            nnz, flags = _classify_device(device_operand, device_operand)
+        else:
+            # small operand with a possibly rounded device copy: host data
+            nnz = int(np.count_nonzero(np.abs(Ad) > 1e-12))
+            flags = _classify_host(Ad)
+    elif device_operand is not None:
+        # big operand, only a rounded working copy: the 1e-9 absolute test
+        # is not resolvable at working precision — classify as general
+        _, _, nnz = _structure_probe(device_operand)
+    else:
+        nnz = int(np.count_nonzero(np.abs(Ad) > 1e-12))
+        if not big:
+            flags = _classify_host(Ad)
+    is_hermitian, is_complex_symmetric, is_positive_definite = flags
+    density = nnz / max(1, m * n)
+    is_sparse = was_sparse or density < sparse_density_threshold
+
+    if device_operand is not None and (max(m, n) > 512 or Ad is None):
+        cond = estimate_cond_device(device_operand)
+    else:
+        cond = estimate_cond(Ad)
+    is_singular = (not np.isfinite(cond)) or cond > 1e15
+
+    return ProblemKnowledge(
+        shape=(m, n), is_hermitian=is_hermitian,
+        is_complex_symmetric=is_complex_symmetric,
+        is_positive_definite=is_positive_definite,
+        is_sparse_input=is_sparse, density=float(density),
+        cond_estimate=float(cond) if np.isfinite(cond) else float("inf"),
+        is_singular=bool(is_singular))

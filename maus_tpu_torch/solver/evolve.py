@@ -1,0 +1,165 @@
+"""The evolution loop for linear systems.
+
+Counterpart of ``maus_tpu/solver/evolve.py`` (linear branch:
+``_effective_psi``, ``make_iteration``, ``init_carry``, ``_stop_condition``,
+``evolve_while``). The JAX ``lax.while_loop`` becomes an eager Python loop with
+a stop check after every iteration; the ``lax.cond`` around the shared
+refactorization becomes a Python branch on a host read. Per-iteration order is
+the reference's: diagnostics → strategy adjustment → candidate step →
+population management. The shared factorization is carried across iterations
+and rebuilt only when the strategy's Ψ rung changes.
+
+Not carried over: the host-refactor handoff and ``refactor_psi`` (an XLA:TPU
+scoped-VMEM workaround) and the mesh branches (a later slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..core.types import (CandidateStatus, Population, ProblemKnowledge,
+                          ProblemType, SolverConfig, StrategyState,
+                          initial_strategy)
+from ..ops.batched_solve import shared_factor_hpd, shared_factor_qr
+from ..ops.regularize import pow10, psi_magnitude
+from . import candidate as cand
+from . import population as popmgmt
+from . import strategy as strat_mod
+
+
+@dataclasses.dataclass
+class EvolveCarry:
+    pop: Population
+    strat: StrategyState
+    fac: object                  # QRFactors / CholFactors / LUFactors
+    psi_cached: torch.Tensor     # f32 — Ψ the carried factorization was built with
+    iteration: torch.Tensor      # i32
+    best_residual: torch.Tensor  # f32 — previous iteration's best active residual
+    stall_count: torch.Tensor    # i32 — iterations without progress
+
+
+def _anorm(A: torch.Tensor) -> torch.Tensor:
+    """‖A‖_F/√N as float32, the scale Ψ is relative to."""
+    n = A.shape[-1]
+    rdt = A.real.dtype
+    return (torch.linalg.vector_norm(A) / torch.sqrt(
+        torch.tensor(float(n), dtype=rdt, device=A.device))).to(torch.float32)
+
+
+def _effective_psi(cfg: SolverConfig, strat: StrategyState,
+                   anorm: torch.Tensor) -> torch.Tensor:
+    """Iteration-level Ψ of the shared factorization: base × matrix scale ×
+    aggression × 10^frustration, quantized to half-decade rungs so that the
+    controller's gentle aggression nudges do not refactorize every
+    iteration."""
+    raw = psi_magnitude(cfg.psi_base * anorm, strat.psi_aggression,
+                        strat.frustration, 0.0)
+    half_decades = torch.round(torch.log10(torch.clamp_min(raw, 1e-300)) * 2.0)
+    return pow10(half_decades / 2.0).to(raw.dtype)
+
+
+def _refactor(knowledge: ProblemKnowledge, A: torch.Tensor, psi):
+    return shared_factor_hpd(A, psi) if knowledge.is_positive_definite \
+        else shared_factor_qr(A, psi)
+
+
+def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
+                   A: torch.Tensor, b: torch.Tensor, target_solutions: int):
+    """Build the single-iteration function ``carry → carry``."""
+    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
+        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+    anorm = _anorm(A)
+
+    def iteration(carry: EvolveCarry) -> EvolveCarry:
+        pop, strat = carry.pop, carry.strat
+        diag = strat_mod.compute_diagnostics(cfg, pop, strat, target_solutions)
+        strat = strat_mod.adjust_strategy(cfg, strat, diag)
+
+        psi_eff = _effective_psi(cfg, strat, anorm).to(carry.psi_cached.dtype)
+        fac = carry.fac
+        if bool(psi_eff != carry.psi_cached):
+            fac = _refactor(knowledge, A, psi_eff)
+        pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat)
+        pop = popmgmt.manage(cfg, pop, strat, diag, target_solutions)
+
+        # population-level escalation pressure (see _effective_psi)
+        bad_step = (stats.solve_fail_frac > 0.5) | (stats.regress_frac > 0.5)
+        frustration = torch.where(
+            stats.solve_fail_frac > 0.5,
+            torch.clamp_max(strat.frustration + 1.0, 24.0),
+            torch.where(stats.solve_fail_frac == 0.0,
+                        torch.clamp_min(strat.frustration - 0.25, 0.0),
+                        strat.frustration))
+        # direct↔GMRES failover after a few consecutive bad steps
+        pref_failures = torch.where(bad_step, strat.pref_failures + 1.0,
+                                    torch.clamp_min(strat.pref_failures - 1.0, 0.0))
+        flip = pref_failures >= 3.0
+        solver_pref = torch.where(flip, 1 - strat.solver_pref, strat.solver_pref)
+        pref_failures = torch.where(flip, torch.zeros_like(pref_failures),
+                                    pref_failures)
+        strat = dataclasses.replace(strat, frustration=frustration,
+                                    pref_failures=pref_failures,
+                                    solver_pref=solver_pref)
+
+        # stagnation tracking: progress is a better best ACTIVE residual than
+        # last iteration's, or a new distinct solution
+        frozen_now = (pop.status == CandidateStatus.CONVERGED) | \
+            (pop.status == CandidateStatus.RETIRED)
+        cur_min = torch.min(torch.where(
+            torch.isfinite(pop.residual) & ~frozen_now, pop.residual,
+            torch.full_like(pop.residual, float("inf")))).to(torch.float32)
+        improved = (cur_min < carry.best_residual * 0.99) | \
+            (strat.num_distinct > carry.strat.num_distinct)
+        best_residual = torch.where(torch.isfinite(cur_min), cur_min,
+                                    carry.best_residual)
+        stall_count = torch.where(improved, torch.zeros_like(carry.stall_count),
+                                  carry.stall_count + 1)
+        return EvolveCarry(pop=pop, strat=strat, fac=fac, psi_cached=psi_eff,
+                           iteration=carry.iteration + 1,
+                           best_residual=best_residual, stall_count=stall_count)
+
+    return iteration
+
+
+def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
+               seed: int) -> EvolveCarry:
+    """Initial population, strategy and shared factorization at the first Ψ."""
+    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
+        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+    device = A.device
+    pop = cand.init_population(cfg, seed, knowledge.shape, device=device)
+    strat = initial_strategy(cfg, knowledge, device=device)
+    psi0 = _effective_psi(cfg, strat, _anorm(A))
+    fac = _refactor(knowledge, A, psi0)
+    return EvolveCarry(
+        pop=pop, strat=strat, fac=fac, psi_cached=psi0,
+        iteration=torch.tensor(0, dtype=torch.int32, device=device),
+        best_residual=torch.tensor(float("inf"), dtype=torch.float32, device=device),
+        stall_count=torch.tensor(0, dtype=torch.int32, device=device))
+
+
+def _stop_condition(cfg: SolverConfig, target_solutions: int,
+                    carry: EvolveCarry) -> torch.Tensor:
+    """Done ⇔ the target number of distinct converged solutions exists, or
+    the best residual has not improved for ``cfg.stall_limit`` iterations
+    (refinement takes over from there)."""
+    return (carry.strat.num_distinct >= target_solutions) | \
+        (carry.stall_count >= cfg.stall_limit)
+
+
+def evolve_while(cfg: SolverConfig, knowledge: ProblemKnowledge,
+                 A: torch.Tensor, b: torch.Tensor, seed: int,
+                 max_iterations: int, target_solutions: int,
+                 carry0: Optional[EvolveCarry] = None) -> EvolveCarry:
+    """Iterate until the stop condition holds or ``max_iterations`` (a bound
+    on the carry's total iteration count) is reached. The caller sets the
+    matmul precision (``utils/precision.full_precision``, as
+    ``MausSolver.evolve`` does)."""
+    step = make_iteration(cfg, knowledge, A, b, target_solutions)
+    carry = carry0 if carry0 is not None else init_carry(cfg, knowledge, A, seed)
+    while not bool((carry.iteration >= max_iterations) |
+                   _stop_condition(cfg, target_solutions, carry)):
+        carry = step(carry)
+    return carry

@@ -1,0 +1,74 @@
+"""Carry solver state over from the JAX package.
+
+:func:`carry_from_numpy` builds the port's
+:class:`~maus_tpu_torch.solver.evolve.EvolveCarry` from the JAX package's
+``EvolveCarry`` whose leaves were turned into numpy arrays (for example
+``jax.tree.map(np.asarray, carry)``). It reads the leaves by attribute name
+only, so this module imports nothing of the JAX package. The tests use it to
+run both packages from identical state, since the two draw different random
+numbers from the same seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.types import Population, StrategyState
+from ..ops.batched_solve import CholFactors, LUFactors, QRFactors
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def keys_from_threefry(keys) -> np.ndarray:
+    """Raw (K, 2) uint32 threefry keys → the port's (seed, counter) pairs:
+    the two words form the slot's seed and the counter starts at 0."""
+    keys = np.asarray(keys, np.uint64)
+    out = np.zeros((keys.shape[0], 2), np.int64)
+    out[:, 0] = (((keys[:, 0] << np.uint64(32)) | keys[:, 1])
+                 >> np.uint64(1)).astype(np.int64)
+    return out
+
+
+def fac_from_numpy(fac, device):
+    """``QRFactors`` (q, r, rinv), ``CholFactors`` (L) or ``LUFactors``
+    (lu, piv with 0-based pivots, as ``jax.scipy.linalg.lu_factor`` gives
+    them; torch's are 1-based)."""
+    if fac is None:
+        return None
+    if hasattr(fac, "q"):
+        rinv = getattr(fac, "rinv", None)
+        return QRFactors(_t(fac.q, device), _t(fac.r, device),
+                         None if rinv is None else _t(rinv, device))
+    if hasattr(fac, "L"):
+        return CholFactors(_t(fac.L, device))
+    return LUFactors(_t(fac.lu, device),
+                     _t(np.asarray(fac.piv).astype(np.int32) + 1, device))
+
+
+def carry_from_numpy(leaves, device=None):
+    """The port's ``EvolveCarry`` from the JAX package's carry with numpy
+    leaves (fields ``pop``, ``strat``, ``fac``, ``psi_cached``,
+    ``iteration``, ``best_residual``, ``stall_count``; ``refactor_psi`` is
+    ignored)."""
+    from ..solver.evolve import EvolveCarry
+
+    pop = leaves.pop
+    fields = {}
+    for f in dataclasses.fields(Population):
+        val = getattr(pop, f.name)
+        if f.name == "keys":
+            val = keys_from_threefry(val)
+        fields[f.name] = None if val is None else _t(val, device)
+    strat = StrategyState(**{f.name: _t(getattr(leaves.strat, f.name), device)
+                             for f in dataclasses.fields(StrategyState)})
+    return EvolveCarry(
+        pop=Population(**fields), strat=strat,
+        fac=fac_from_numpy(leaves.fac, device),
+        psi_cached=_t(np.float32(leaves.psi_cached), device),
+        iteration=_t(np.int32(leaves.iteration), device),
+        best_residual=_t(np.float32(leaves.best_residual), device),
+        stall_count=_t(np.int32(leaves.stall_count), device))

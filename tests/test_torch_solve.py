@@ -1,0 +1,203 @@
+"""The slice end to end: ``maus_tpu_torch.solve`` against ``maus_tpu.solve`` on
+the same numpy systems, in the default working dtype (complex128 on the CPU)
+and in complex64, the card's working dtype.
+
+The two packages draw different random initial populations, so their iterates
+are compared by outcome: the same convergence verdict and report fields, both
+solutions within tol by an independent numpy complex128 residual, and
+‖x_port − x_jax‖ ≤ 10·κ·tol·‖x_jax‖ (each is certified within tol in residual,
+hence within κ·tol of the exact solution).
+
+complex64 runs use one explicit config for both packages: the convergence
+floor max(50, 2κ)·ε₃₂ and 60 refinement steps, as the JAX package's bench
+configures its headline solve."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import maus_tpu
+from maus_tpu.problems import generators as gen
+import maus_tpu_torch
+from maus_tpu.solver import diagnose as dj
+from maus_tpu.utils import truth as tj
+from maus_tpu_torch.solver import diagnose as dt
+from maus_tpu_torch.solver.api import convergence_floor
+from maus_tpu_torch.utils import truth as tt
+
+torch.set_num_threads(1)
+
+TOL = 1e-8
+EPS32 = float(np.finfo(np.float32).eps)
+
+SYSTEMS = {
+    "ill-64-1e2": lambda: gen.ill_conditioned_system(64, 1e2),
+    "ill-64-1e6": lambda: gen.ill_conditioned_system(64, 1e6),
+    "ill-256-1e2": lambda: gen.ill_conditioned_system(256, 1e2),
+    "ill-256-1e6": lambda: gen.ill_conditioned_system(256, 1e6),
+    "well-64": lambda: gen.well_conditioned_system(64),
+    "hpd-64": lambda: _hpd_system(64),
+}
+
+
+def _hpd_system(n, seed=7):
+    """Hermitian positive definite: diagnosis sends it down the Cholesky path."""
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    return B @ B.conj().T / n + 0.1 * np.eye(n), b
+
+
+def _c64_configs(kappa):
+    floor = float(max(50.0, 2.0 * kappa) * EPS32)
+    return (maus_tpu.SolverConfig(dtype=jnp.complex64, convergence_floor=floor,
+                                  max_refine_steps=60),
+            maus_tpu_torch.SolverConfig(dtype=torch.complex64,
+                                        convergence_floor=floor,
+                                        max_refine_steps=60))
+
+
+def _rel(A, x, b):
+    return np.linalg.norm(A @ x - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("dtype", ["default", "complex64"])
+@pytest.mark.parametrize("system", sorted(SYSTEMS))
+def test_solve_matches_jax(system, dtype):
+    A, b = SYSTEMS[system]()
+    kappa = float(np.linalg.cond(A))
+    cfg_j = cfg_t = None
+    if dtype == "complex64":
+        cfg_j, cfg_t = _c64_configs(kappa)
+    kw = dict(tol=TOL, max_iterations=50, num_candidates=16)
+    rj = maus_tpu.solve(A, b, config=cfg_j, **kw)
+    rt = maus_tpu_torch.solve(A, b, config=cfg_t, device="cpu", **kw)
+
+    assert rt.converged == rj.converged
+    assert rt.converged
+    for f in ("problem_type", "num_distinct", "target_solutions"):
+        assert int(getattr(rt, f)) == int(getattr(rj, f)), f
+    assert rt.knowledge.cond_estimate == pytest.approx(rj.knowledge.cond_estimate,
+                                                       rel=1e-9)
+    for f in ("shape", "is_hermitian", "is_complex_symmetric", "is_sparse_input",
+              "is_positive_definite", "is_singular"):
+        assert getattr(rt.knowledge, f) == getattr(rj.knowledge, f), f
+    assert len(rt.solutions) == len(rt.residuals) == rt.num_distinct
+
+    x_t, x_j = rt.best()[0], rj.best()[0]
+    assert x_t.dtype == np.complex128 and x_t.shape == b.shape
+    assert _rel(A, x_t, b) <= TOL and _rel(A, x_j, b) <= TOL
+    assert min(rt.residuals) <= TOL
+    # the report's residual is the certified one, up to its FP64 rounding
+    bar = 1e-15 * np.linalg.norm(A) * np.linalg.norm(x_t) / np.linalg.norm(b)
+    assert abs(min(rt.residuals) - _rel(A, x_t, b)) <= bar
+    assert np.linalg.norm(x_t - x_j) <= 10 * kappa * TOL * np.linalg.norm(x_j)
+
+
+def test_solve_accepts_tensors_and_keeps_their_device():
+    A, b = gen.well_conditioned_system(32, seed=5)
+    At = torch.from_numpy(A.astype(np.complex64))
+    bt = torch.from_numpy(b.astype(np.complex64))
+    s = maus_tpu_torch.MausSolver(At, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM,
+                                  b_vector=bt)
+    assert s.device.type == "cpu" and s.config.dtype == torch.complex128
+    rep = s.evolve(50)
+    assert rep.converged and _rel(A.astype(np.complex64), rep.best()[0], b.astype(
+        np.complex64)) <= TOL
+
+
+def test_convergence_floor_policy():
+    assert convergence_floor(torch.complex128, 1e6) == 0.0
+    assert convergence_floor(torch.complex64, 1.0) == pytest.approx(50 * EPS32)
+    assert convergence_floor(torch.complex64, 1e6) == pytest.approx(2e6 * EPS32)
+    assert convergence_floor(torch.complex64, float("inf")) == 1.0
+
+
+def test_floor_cap_divergence_from_reference():
+    """Recorded divergence: the JAX package caps the complex64 floor at 1e-2,
+    below what a complex64 solve reaches on this κ = 1e6 system, so its
+    candidates stall and ``solve`` returns no solution. The port runs the same
+    engine (with the reference's floor it stalls the same way) but its floor
+    policy accepts at max(50, 2κ)·ε₃₂ and refinement certifies tol."""
+    A, b = gen.ill_conditioned_system(256, 1e6, seed=0)
+    kappa = float(np.linalg.cond(A))
+    ref_floor = float(min(max(50.0, 2.0 * kappa) * EPS32, 1e-2))
+    kw = dict(tol=TOL, max_iterations=50, num_candidates=16)
+    rj = maus_tpu.solve(A, b, config=maus_tpu.SolverConfig(
+        dtype=jnp.complex64, convergence_floor=ref_floor), **kw)
+    assert not rj.converged and rj.solutions == []
+    rt_ref = maus_tpu_torch.solve(A, b, config=maus_tpu_torch.SolverConfig(
+        dtype=torch.complex64, convergence_floor=ref_floor), **kw)
+    assert not rt_ref.converged
+    rt = maus_tpu_torch.solve(A, b, config=maus_tpu_torch.SolverConfig(
+        dtype=torch.complex64,
+        convergence_floor=convergence_floor(torch.complex64, kappa)), **kw)
+    assert rt.converged and _rel(A, rt.best()[0], b) <= TOL
+
+
+def test_rejects_what_is_not_ported():
+    A, b = gen.well_conditioned_system(8)
+    with pytest.raises(NotImplementedError):
+        maus_tpu_torch.MausSolver(A, maus_tpu_torch.ProblemType.EIGENVALUE)
+    with pytest.raises(ValueError):
+        maus_tpu_torch.solve(A[:, :6], b)
+    with pytest.raises(ValueError):
+        maus_tpu_torch.solve(A, b[:5])
+    bad = A.copy()
+    bad[0, 0] = np.nan
+    with pytest.raises(ValueError):
+        maus_tpu_torch.solve(bad, b)
+
+
+@pytest.mark.parametrize("kind", ["general", "hermitian-pd", "hermitian-indefinite",
+                                  "complex-symmetric", "sparse"])
+def test_diagnose_matches_jax(kind):
+    rng = np.random.default_rng(11)
+    n = 48
+    B = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    A = {"general": B,
+         "hermitian-pd": B @ B.conj().T + np.eye(n),
+         "hermitian-indefinite": B + B.conj().T,
+         "complex-symmetric": B + B.T,
+         "sparse": np.diag(np.arange(1.0, n + 1)) + 0j}[kind]
+    kj = dj.diagnose(A, maus_tpu.ProblemType.SOLVE_LINEAR_SYSTEM)
+    kt = dt.diagnose(A, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM)
+    for f in ("shape", "is_hermitian", "is_complex_symmetric", "is_sparse_input",
+              "is_positive_definite", "is_singular", "density"):
+        assert getattr(kt, f) == getattr(kj, f), f
+    assert kt.cond_estimate == pytest.approx(kj.cond_estimate, rel=1e-9)
+    # the device path (complex64-exact working copy) classifies the same way
+    A64 = A.astype(np.complex64)
+    kd = dt.diagnose(None, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM,
+                     device_operand=torch.from_numpy(A64), device_exact=True)
+    kh = dt.diagnose(A64, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM)
+    for f in ("is_hermitian", "is_complex_symmetric", "is_sparse_input",
+              "is_positive_definite", "density"):
+        assert getattr(kd, f) == getattr(kh, f), f
+
+
+@pytest.mark.parametrize("kappa", [1e2, 1e4])
+def test_device_cond_probe(kappa):
+    """The on-device probe (used above 512², and for tensor inputs) estimates
+    κ within a factor 4 of the exact value while complex64 IR resolves it,
+    like the JAX package's probe on the same operand."""
+    A, _ = gen.ill_conditioned_system(128, kappa, seed=1)
+    A64 = A.astype(np.complex64)
+    exact = np.linalg.cond(A64.astype(np.complex128))
+    est_t = dt.estimate_cond_device(torch.from_numpy(A64))
+    est_j = dj.estimate_cond_device(jnp.asarray(A64))
+    for est in (est_t, est_j):
+        assert exact / 4 <= est <= exact * 4
+
+
+def test_truth_report_matches_jax():
+    """utils/truth on the port's report gives what the JAX package's gives."""
+    A, b = gen.well_conditioned_system(32, seed=9)
+    rep = maus_tpu_torch.solve(A, b, tol=1e-10)
+    rt_ = tt.compare(rep, A, b)
+    rj_ = tj.compare(rep, A, b)
+    assert rt_.matched == rj_.matched == 1 and rt_.total_found == 1
+    assert rt_.max_abs_error == rj_.max_abs_error <= 1e-9
+    np.testing.assert_array_equal(tt.compute_truth(A, rep.problem_type, b),
+                                  tj.compute_truth(A, maus_tpu.ProblemType(
+                                      int(rep.problem_type)), b))
