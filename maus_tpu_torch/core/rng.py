@@ -40,24 +40,56 @@ def advance(keys: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _generator(seed: int, counter: int, device) -> torch.Generator:
+def _generator(seed: int, counter: int, device, stream: int = 0) -> torch.Generator:
+    """The generator of one slot's draw: ``stream`` tells apart the
+    independent draws a slot makes at the same counter (the JAX package
+    splits the slot's key once per draw)."""
+    z = _splitmix64(_splitmix64(seed) ^ counter)
+    if stream:
+        z = _splitmix64(z ^ stream)
     g = torch.Generator(device=device)
-    g.manual_seed(_splitmix64(_splitmix64(seed) ^ counter) >> 1)
+    g.manual_seed(z >> 1)
     return g
 
 
+def _per_row(keys: torch.Tensor, rows, device, stream: int, draw):
+    pairs = keys.cpu().tolist()
+    return torch.stack([draw(_generator(pairs[k][0], pairs[k][1], device, stream))
+                        for k in rows])
+
+
 def normal_rows(keys: torch.Tensor, rows, n: int, dtype: torch.dtype,
-                device) -> torch.Tensor:
+                device, stream: int = 0) -> torch.Tensor:
     """Zero-mean, unit-variance complex normal vectors of length ``n``, one
     per slot index in ``rows``, each drawn from that slot's own stream.
     Zero-mean init keeps the population diverse (the reference's U[0,1] init
     collapses it)."""
-    pairs = keys.cpu().tolist()
     rdt = dtype.to_real()
-    out = []
-    for k in rows:
-        g = _generator(pairs[k][0], pairs[k][1], device)
+
+    def draw(g):
         re = torch.randn(n, generator=g, dtype=rdt, device=device)
         im = torch.randn(n, generator=g, dtype=rdt, device=device)
-        out.append(torch.complex(re, im) / math.sqrt(2.0))
-    return torch.stack(out)
+        return torch.complex(re, im) / math.sqrt(2.0)
+
+    return _per_row(keys, rows, device, stream, draw)
+
+
+def normal_scalars(keys: torch.Tensor, rows, dtype: torch.dtype, device,
+                   stream: int = 0) -> torch.Tensor:
+    """One zero-mean, unit-variance complex normal per slot index in
+    ``rows``, from that slot's own stream: shape (len(rows),)."""
+    return normal_rows(keys, rows, 1, dtype, device, stream)[:, 0]
+
+
+def categorical(keys: torch.Tensor, rows, logits: torch.Tensor,
+                stream: int = 0) -> torch.Tensor:
+    """One index per slot index in ``rows``, drawn with probabilities
+    softmax(``logits``) (a -inf logit is never drawn), from that slot's own
+    stream: int64 of shape (len(rows),). At least one logit must be finite."""
+    device = logits.device
+    cdf = torch.cumsum(torch.softmax(logits.double(), dim=0), dim=0)
+    u = _per_row(keys, rows, device, stream,
+                 lambda g: torch.rand(1, generator=g, dtype=torch.float64,
+                                      device=device))[:, 0] * cdf[-1]
+    idx = torch.searchsorted(cdf, u, right=True)
+    return torch.clamp_max(idx, logits.shape[0] - 1)

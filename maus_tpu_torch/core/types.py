@@ -20,8 +20,8 @@ import torch
 
 class ProblemType(enum.IntEnum):
     """Problem classes (reference ``ProblemType``). The port runs
-    SOLVE_LINEAR_SYSTEM; the other two are declared so that codes agree with
-    the JAX package."""
+    SOLVE_LINEAR_SYSTEM and non-Hermitian EIGENVALUE; SVD is declared so that
+    codes agree with the JAX package."""
 
     EIGENVALUE = 0
     SOLVE_LINEAR_SYSTEM = 1
@@ -64,8 +64,9 @@ def as_torch_dtype(dtype) -> torch.dtype:
 class SolverConfig:
     """Static solver configuration; defaults as in the JAX package.
 
-    Only the fields the linear path reads are here; the eig and SVD fields
-    arrive with their slices. Not carried over: ``host_refactor``, which
+    Only the fields the linear and non-Hermitian eig paths read are here;
+    the Hermitian-eig and SVD fields arrive with their slices. Not carried
+    over: ``host_refactor``, which
     exists only for XLA:TPU's 16 MB scoped-VMEM cap on conditional branches
     (the port refactorizes in ordinary Python control flow at any size).
     One default differs: ``max_refine_steps`` (see its comment).
@@ -76,6 +77,7 @@ class SolverConfig:
     tol: float = 1e-8
     # Ψ regularization, relative to the matrix scale ‖A‖_F/√N
     psi_base: float = 1e-18
+    max_psi_attempts: int = 4        # batched Ψ-ladder depth per eig step
     # step-size adaptation
     alpha_initial: float = 0.7
     alpha_grow: float = 1.5
@@ -88,6 +90,9 @@ class SolverConfig:
     max_stuck_for_retirement: int = 8
     max_stuck_for_pruning: int = 4
     min_weight: float = 1e-10
+    # distinct-solution similarity thresholds (eig)
+    vector_similarity_tol: float = 0.999
+    lambda_similarity_tol: float = 1e-5
     # numerics
     dtype: Any = torch.complex64     # working dtype: complex64 or complex128
     convergence_floor: float = 0.0   # dtype precision floor of the in-loop
@@ -101,6 +106,10 @@ class SolverConfig:
                                      # while 24 of IR reach 2.3e-10; the JAX
                                      # bench passes 60. The loop exits early
                                      # at tol or on a stall.
+    use_hessenberg: bool = True      # non-Hermitian eig: reduce A = Q H Qᴴ once
+                                     # and run every shifted solve as an O(N²)
+                                     # Givens QR on (H − λI), kernel K2;
+                                     # otherwise one LU per candidate per step
     target_num_solutions: Optional[int] = None
     stall_limit: int = 10            # stop when the best residual has not
                                      # improved for this many iterations
@@ -123,11 +132,12 @@ class Population:
 
     ``keys`` is a (K, 2) int64 tensor: a per-slot seed and a per-slot
     counter, which together seed the ``torch.Generator`` a slot draws from
-    (``core/rng.py``). The eigen and SVD fields (``lam``, ``u``) arrive with
-    their slices.
+    (``core/rng.py``). ``lam`` holds λ for eigenproblems and zeros for linear
+    systems; the SVD left vector ``u`` arrives with its slice.
     """
 
-    v: torch.Tensor              # (K, N) complex — the iterate x
+    v: torch.Tensor              # (K, N) complex — the iterate x, or eigenvector
+    lam: torch.Tensor            # (K,) complex — eigenvalue (eig), 0 (linear)
     weight: torch.Tensor         # (K,) real
     alpha: torch.Tensor          # (K,) real — local step size
     stuck: torch.Tensor          # (K,) int32
@@ -185,12 +195,16 @@ class ProblemKnowledge:
 
 
 def default_target_solutions(cfg: SolverConfig, knowledge: ProblemKnowledge) -> int:
-    """How many distinct solutions the run is trying to find: one for a
-    linear system unless the config says otherwise."""
+    """How many distinct solutions the run is trying to find unless the
+    config says otherwise: one for a linear system, N eigenpairs for an
+    eigenproblem."""
     if cfg.target_num_solutions is not None:
         return int(cfg.target_num_solutions)
+    if cfg.problem_type == ProblemType.EIGENVALUE:
+        return int(knowledge.shape[1]) if len(knowledge.shape) > 1 \
+            else int(knowledge.shape[0])
     if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
     return 1
 
 
@@ -206,7 +220,8 @@ def initial_strategy(cfg: SolverConfig, knowledge: ProblemKnowledge,
         aggression, pref, thresh = 10.0, SolverPreference.DIRECT, max(cfg.tol, 1e-4)
     else:
         aggression, pref, thresh = 1.0, SolverPreference.DIRECT, cfg.tol
-    if knowledge.is_singular:
+    if knowledge.is_singular and \
+            cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
         aggression, pref = max(aggression, 20.0), SolverPreference.GMRES
 
     def f32(v):

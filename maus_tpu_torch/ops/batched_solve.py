@@ -4,7 +4,9 @@ Counterpart of ``maus_tpu/ops/batched_solve.py``. QR, Cholesky, LU and the
 triangular solves are library calls (``torch.linalg``), as the JAX package
 leaves them to XLA. Every candidate of a linear system solves the same
 ``(A + ΨD) x = b``, so one factorization per Ψ level is computed and reused
-across iterations.
+across iterations. The eig path's per-candidate shifted solves escalate Ψ
+through :func:`psi_ladder`; :func:`batched_shifted_solve` is its LU form,
+used when the shared Hessenberg reduction is switched off.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .regularize import apply_shift
+from .regularize import apply_shift, psi_magnitude, shift_diagonal
 
 
 def _solve_upper(R: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -165,3 +167,50 @@ def solve_any(fac, b: torch.Tensor) -> torch.Tensor:
     if isinstance(fac, QRFactors):
         return solve_qr(fac, b)
     return solve_factored(fac, b)
+
+
+# ---------------------------------------------------------------------------
+# Ψ ladder: per-candidate escalation of the eig path's shifted solves
+# ---------------------------------------------------------------------------
+
+def _finite_rows(x: torch.Tensor) -> torch.Tensor:
+    return (torch.isfinite(x.real) & torch.isfinite(x.imag)).all(dim=-1)
+
+
+def psi_ladder(solve_at, K: int, max_attempts: int, device=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``solve_at(attempt_k: (K,) int32) -> (K, N)`` solves at per-candidate
+    attempt levels. Candidates whose result is finite are frozen; the ladder
+    re-solves while some candidate is non-finite and has attempts left.
+    Rows still non-finite at the end come back zero (the candidate layer
+    reads a zero update as a failed solve). Returns ``(W, attempts)``."""
+    attempts = torch.zeros((K,), dtype=torch.int32, device=device)
+    W = solve_at(attempts)
+    ok = _finite_rows(W)
+    while bool((~ok & (attempts < max_attempts)).any()):
+        attempts = torch.where(ok, attempts, attempts + 1)
+        W_try = solve_at(attempts)
+        W = torch.where(ok[:, None], W, W_try)
+        ok = ok | _finite_rows(W_try)
+    W = torch.where(ok[:, None], W, torch.zeros_like(W))
+    return W, attempts
+
+
+def batched_shifted_solve(A: torch.Tensor, lams: torch.Tensor,
+                          stuck: torch.Tensor, psi_base, aggression,
+                          B: torch.Tensor, max_attempts: int = 4
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve ``(A − λ_k I + Ψ_k D) w_k = B_k`` by one LU per candidate, with
+    Ψ_k growing with the candidate's stuck counter and ladder attempt.
+    Returns ``(W, attempts)``."""
+    K, N = B.shape
+
+    def solve_at(attempt_k):
+        psi = psi_magnitude(psi_base, aggression, attempt_k, stuck)
+        d = shift_diagonal(N, psi[:, None], A.dtype) - lams[:, None].to(A.dtype)
+        H = A.expand(K, N, N).clone()
+        H.diagonal(dim1=-2, dim2=-1).add_(d)
+        lu, piv = torch.linalg.lu_factor(H)
+        return torch.linalg.lu_solve(lu, piv, B.unsqueeze(-1)).squeeze(-1)
+
+    return psi_ladder(solve_at, K, max_attempts, device=B.device)

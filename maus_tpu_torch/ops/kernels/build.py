@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``maus_tpu_torch/csrc/`` have a plain C interface; they are
-compiled with ``nvcc`` into one shared library in ``maus_tpu_torch/_build/``
-(listed in ``.gitignore``) at the first CUDA use and loaded with ``ctypes``.
+The sources under ``maus_tpu_torch/csrc/`` have a plain C interface; each is
+compiled by its own ``nvcc`` process (all started together) and the objects
+are linked into one shared library in ``maus_tpu_torch/_build/`` (listed in
+``.gitignore``) at the first CUDA use, then loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an edited
 source is rebuilt. Nothing here runs at import time, and nothing falls back:
 a missing ``nvcc`` or a failed build raises.
@@ -20,9 +21,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("true_residual.cu",)
+SOURCES = ("true_residual.cu", "hess_solve.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -58,19 +59,24 @@ def build(force: bool = False) -> str:
     if os.path.exists(path) and not force:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, os.path.splitext(s)[0] + ".o") for s in SOURCES]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                              os.path.join(CSRC, s)]
+                             for s, o in zip(SOURCES, objs))]
+        outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        tmp = os.path.join(work, "lib.so")
+        if all(rc == 0 for _, _, rc in outs):
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            outs = [(cmd, proc.stdout + proc.stderr, proc.returncode)]
+        for cmd, out, rc in outs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return path
 
 
@@ -84,6 +90,10 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.maus_hess_solve
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
+                [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib

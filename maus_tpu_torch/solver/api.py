@@ -1,20 +1,25 @@
-"""User-facing API for linear systems: :class:`MausSolver` and :func:`solve`.
+"""User-facing API: :class:`MausSolver`, :func:`solve` and :func:`eig`.
 
-Counterpart of the linear part of ``maus_tpu/solver/api.py``. Construction
-stages the operand on the requested device, diagnoses it and picks the
-working dtype (complex128 on the CPU, complex64 on CUDA — as the JAX package
-uses complex128 only off the accelerator); ``evolve`` runs the population
-engine to the working dtype's floor, then certified refinement takes the
-distinct solutions to the user's tolerance against the ORIGINAL operand.
+Counterpart of the linear and non-Hermitian eig parts of
+``maus_tpu/solver/api.py``. Construction stages the operand on the device
+(the card unless the caller passes ``device="cpu"``), diagnoses it and picks
+the working dtype (complex128 on the CPU, complex64 on CUDA — as the JAX
+package uses complex128 only off the accelerator); ``evolve`` runs the
+population engine to the working dtype's floor, then the finishers take the
+distinct solutions to the user's tolerance against the ORIGINAL operand:
+certified refinement for a linear system, the FP64 bordered-Newton finisher
+for eigenpairs.
 
-Not carried over: the host-refactor driving (a TPU workaround) and
-``_stage_operand``'s complex host-crossing workarounds (``utils/xfer.py``).
-Checkpointing, metrics capture, ``update_problem``, eig and SVD wait for
-later slices.
+Not carried over: the host-refactor driving and the hoisted large-N
+Hessenberg program (TPU workarounds), the TPU-QR halving of the finisher's
+chunk, and ``_stage_operand``'s complex host-crossing workarounds
+(``utils/xfer.py``). The mesh paths, checkpointing, metrics capture,
+``update_problem``, Hermitian eig and SVD wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -24,6 +29,7 @@ from ..core.types import (ProblemKnowledge, ProblemType, SolverConfig,
                           default_target_solutions)
 from ..ops.batched_solve import shared_factor_qr
 from ..ops.refine import refine_gmres, refine_split
+from ..ops.refine_eig import refine_eigenpairs
 from ..utils.precision import full_precision
 from . import evolve as evolve_mod
 from . import strategy as strat_mod
@@ -34,9 +40,13 @@ C128 = torch.complex128
 
 @dataclasses.dataclass
 class SolutionReport:
-    """Distinct converged solutions plus run diagnostics; for linear
-    systems each entry of ``solutions`` is ``(x,)`` with ``x`` a complex128
-    numpy vector."""
+    """Distinct converged solutions plus run diagnostics. Each entry of
+    ``solutions`` is ``(x,)`` for a linear system, with ``x`` a complex128
+    numpy vector, and ``(λ, v)`` for an eigenproblem, with λ a Python
+    complex and ``v`` a numpy vector (complex128 once finished). ``timings``
+    holds the host seconds of each phase of ``evolve`` (``setup_s``, the
+    shared Hessenberg reduction; ``engine_s``; ``finish_s``), each phase
+    ending in a device synchronisation."""
 
     problem_type: ProblemType
     solutions: list
@@ -46,6 +56,7 @@ class SolutionReport:
     target_solutions: int
     landscape_energy: float
     knowledge: ProblemKnowledge
+    timings: Optional[dict] = None
 
     @property
     def converged(self) -> bool:
@@ -58,13 +69,24 @@ class SolutionReport:
 
 
 def _resolve_device(obj, device) -> torch.device:
-    """An explicit ``device`` wins; a tensor stays on its own device; any
-    other input (numpy, scipy.sparse, lists) goes to the CPU."""
+    """An explicit ``device`` wins. Otherwise the card: a CUDA tensor stays
+    on its own card, and any other input (numpy, scipy.sparse, lists, CPU
+    tensors) goes to ``cuda``. The CPU runs only when asked for with
+    ``device="cpu"``; without a card the default raises."""
     if device is not None:
         return torch.device(device)
-    if isinstance(obj, torch.Tensor):
+    if isinstance(obj, torch.Tensor) and obj.is_cuda:
         return obj.device
-    return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError('maus_tpu_torch runs on a CUDA card by default and '
+                           'none is available; pass device="cpu" to run on '
+                           'the CPU')
+    return torch.device("cuda")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _all_finite(t: torch.Tensor) -> bool:
@@ -72,7 +94,8 @@ def _all_finite(t: torch.Tensor) -> bool:
     return bool(torch.isfinite(t).all())
 
 
-def _stage_operand(matrix, compute_dtype: torch.dtype, device: torch.device):
+def _stage_operand(matrix, compute_dtype: torch.dtype, device: torch.device,
+                   problem_type: ProblemType = ProblemType.SOLVE_LINEAR_SYSTEM):
     """Put the operand on ``device``.
 
     Returns ``(A_host, A_work, A_true, exact)``: the host copy (``None`` for
@@ -101,7 +124,7 @@ def _stage_operand(matrix, compute_dtype: torch.dtype, device: torch.device):
     if not _all_finite(full):
         raise ValueError("matrix contains non-finite entries")
     if full.shape[0] != full.shape[1]:
-        raise ValueError(f"SOLVE_LINEAR_SYSTEM requires a square matrix, "
+        raise ValueError(f"{problem_type.name} requires a square matrix, "
                          f"got {tuple(full.shape)}")
     A_work = full.to(compute_dtype).contiguous()
     A_true = A_work if (exact or compute_dtype == C128) else full.contiguous()
@@ -143,19 +166,49 @@ def convergence_floor(dtype: torch.dtype, cond: float) -> float:
     return float(min(max(50.0, 2.0 * cond) * eps32, 1.0))
 
 
+def eig_convergence_floor(dtype: torch.dtype, n: int) -> float:
+    """In-loop floor of eigen residuals (relative to ‖A‖): 0 in complex128,
+    min(max(50, √N)·ε₃₂, 1e-2) in complex64. The complex64 eigen residual
+    floor is ~√N·ε·‖A‖, independent of κ; a κ-aware floor would accept
+    crude vectors that the finisher then snaps onto shared eigenpairs."""
+    if dtype == C128:
+        return 0.0
+    eps32 = float(np.finfo(np.float32).eps)
+    return float(min(max(50.0, np.sqrt(n)) * eps32, 1e-2))
+
+
+def _overlap(a: np.ndarray, b: np.ndarray) -> float:
+    na, nb = np.linalg.norm(a), np.linalg.norm(b)
+    if na == 0 or nb == 0:
+        return 1.0
+    return abs(np.vdot(a, b)) / (na * nb)
+
+
 def _final_dedup(cfg: SolverConfig, solutions: list,
                  residuals: list) -> tuple[list, list]:
     """Deterministic host-side final dedup over the gathered leaders, with a
     hysteresis band (×1.25) around the device's similarity threshold so that
     rounding-level differences cannot move a pair across it. Processed in
-    residual order, best first."""
+    residual order, best first; eigenpairs by the device's rule (λ distance
+    with the residual band, vector overlap)."""
     BAND = 1.25
+    vec_dup = 1.0 - BAND * (1.0 - cfg.vector_similarity_tol)
     order = sorted(range(len(solutions)), key=lambda i: residuals[i])
     kept_s, kept_r = [], []
     for i in order:
         sol, res = solutions[i], residuals[i]
-        dup = any(np.linalg.norm(sol[0] - ks[0]) < BAND * 100.0 * cfg.tol
-                  for ks in kept_s)
+        dup = False
+        for ks, kr in zip(kept_s, kept_r):
+            if cfg.problem_type == ProblemType.EIGENVALUE:
+                rband = 4.0 * (res + kr) if np.isfinite(res + kr) else 0.0
+                (lam, v), (lam2, v2) = sol, ks
+                dup = (abs(lam - lam2) < BAND * (cfg.lambda_similarity_tol
+                                                 + abs(lam2) * 1e-6) + rband
+                       and _overlap(v, v2) > vec_dup)
+            else:
+                dup = bool(np.linalg.norm(sol[0] - ks[0]) < BAND * 100.0 * cfg.tol)
+            if dup:
+                break
         if not dup:
             kept_s.append(sol)
             kept_r.append(res)
@@ -163,7 +216,13 @@ def _final_dedup(cfg: SolverConfig, solutions: list,
 
 
 class MausSolver:
-    """Population-based meta-heuristic solver for Ax=b (PyTorch port)."""
+    """Population-based meta-heuristic solver for Ax=b and non-Hermitian
+    Ax=λx (PyTorch port)."""
+
+    # finisher chunk: each candidate factors its own (N, N) shifted system,
+    # so bound the chunk's factorization workspace at about 2 GiB
+    _REFINE_CHUNK = 8
+    _REFINE_CHUNK_BYTES = 2 << 30
 
     def __init__(self, matrix, problem_type: ProblemType, b_vector=None,
                  initial_num_candidates: Optional[int] = None,
@@ -172,33 +231,40 @@ class MausSolver:
                  knowledge: Optional[ProblemKnowledge] = None,
                  target_solutions: Optional[int] = None, device=None):
         problem_type = ProblemType(problem_type)
-        if problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
+        if problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
+                                ProblemType.EIGENVALUE):
             raise NotImplementedError(
                 f"{problem_type.name} is not ported to maus_tpu_torch yet")
-        if b_vector is None:
+        linear = problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
+        if linear and b_vector is None:
             raise ValueError("SOLVE_LINEAR_SYSTEM requires b_vector")
         self.device = _resolve_device(matrix, device)
         compute_dtype = config.dtype if config is not None else \
             (C128 if self.device.type == "cpu" else torch.complex64)
         with full_precision():
             A_host, A_work, A_true, exact = _stage_operand(
-                matrix, compute_dtype, self.device)
+                matrix, compute_dtype, self.device, problem_type)
             self.knowledge = knowledge if knowledge is not None else diagnose(
                 matrix if A_host is not None else None, problem_type,
                 device_operand=A_work,
                 device_full=A_true if A_true is not A_work else None,
                 device_exact=exact)
         m, n = self.knowledge.shape
+        if not linear and self.knowledge.is_hermitian:
+            raise NotImplementedError("Hermitian eig (shared eigh, deflated "
+                                      "Lanczos) is not ported to "
+                                      "maus_tpu_torch yet")
 
         if config is None:
             if initial_num_candidates is None:
                 initial_num_candidates = min(3 * max(m, n), 64)
+            floor = convergence_floor(compute_dtype, self.knowledge.cond_estimate) \
+                if linear else eig_convergence_floor(compute_dtype, max(m, n))
             config = SolverConfig(
                 problem_type=problem_type,
                 num_candidates=int(initial_num_candidates),
                 tol=float(global_convergence_tol), dtype=compute_dtype,
-                convergence_floor=convergence_floor(
-                    compute_dtype, self.knowledge.cond_estimate))
+                convergence_floor=floor)
         else:
             config = dataclasses.replace(
                 config, problem_type=problem_type,
@@ -214,38 +280,70 @@ class MausSolver:
         self.target_solutions = min(default_target_solutions(config, self.knowledge),
                                     config.num_candidates)
         self.A_host = A_host
-        self.A = A_work
+        self.A = A_work if A_work.dtype == config.dtype else \
+            A_true.to(config.dtype).contiguous()
         self.A_true = A_true
-        self.b, self.b_true = _stage_rhs(b_vector, n, config.dtype, self.device)
+        self.b = self.b_true = None
+        if linear:
+            self.b, self.b_true = _stage_rhs(b_vector, n, config.dtype, self.device)
         self._seed = int(seed)
         self._fac_cache = None
+        self._A64 = None
 
     def evolve(self, max_iterations: int = 100) -> SolutionReport:
-        """Run the evolution loop, then refine each distinct solution."""
+        """Run the evolution loop, then take each distinct solution to tol
+        with its finisher."""
         cfg, kn = self.config, self.knowledge
+        timings = {}
         with full_precision():
+            t0 = time.perf_counter()
+            hess = evolve_mod._setup_caches(cfg, kn, self.A)
+            _sync(self.device)
+            timings["setup_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
             carry = evolve_mod.evolve_while(cfg, kn, self.A, self.b, self._seed,
-                                            max_iterations, self.target_solutions)
-            self._maybe_reuse_factors(carry)
+                                            max_iterations, self.target_solutions,
+                                            hess_cache=hess)
+            del hess
+            _sync(self.device)
+            timings["engine_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
             pop, strat = carry.pop, carry.strat
             diag = strat_mod.compute_diagnostics(cfg, pop, strat,
                                                  self.target_solutions)
             leader = diag.distinct_leader.cpu().numpy()
             residual = pop.residual.cpu().numpy().astype(np.float64)
             order = np.argsort(np.where(np.isfinite(residual), residual, np.inf))
+            leader_ks = [int(k) for k in order if leader[k]]
             solutions, residuals = [], []
-            for k in (int(k) for k in order if leader[k]):
-                xk, rel = pop.v[k], float(residual[k])
-                if cfg.refine:
-                    xk, rel = self._refine_linear(xk)
-                solutions.append((xk.cpu().numpy(),))
-                residuals.append(rel)
+            if cfg.problem_type == ProblemType.EIGENVALUE:
+                lam = pop.lam.cpu().numpy()
+                v = pop.v.cpu().numpy()
+                refined = self._refine_spectral(leader_ks, pop.lam, pop.v,
+                                                residual) \
+                    if cfg.refine and leader_ks else {}
+                for k in leader_ks:
+                    lam_k, v_k, r_k = refined.get(
+                        k, (complex(lam[k]), v[k], float(residual[k])))
+                    solutions.append((lam_k, v_k))
+                    residuals.append(r_k)
+            else:
+                self._maybe_reuse_factors(carry)
+                for k in leader_ks:
+                    xk, rel = pop.v[k], float(residual[k])
+                    if cfg.refine:
+                        xk, rel = self._refine_linear(xk)
+                    solutions.append((xk.cpu().numpy(),))
+                    residuals.append(rel)
+            _sync(self.device)
+            timings["finish_s"] = time.perf_counter() - t0
         solutions, residuals = _final_dedup(cfg, solutions, residuals)
         return SolutionReport(
             problem_type=cfg.problem_type, solutions=solutions,
             residuals=residuals, iterations=int(carry.iteration),
             num_distinct=len(solutions), target_solutions=self.target_solutions,
-            landscape_energy=float(strat.landscape_energy), knowledge=kn)
+            landscape_energy=float(strat.landscape_energy), knowledge=kn,
+            timings=timings)
 
     def _maybe_reuse_factors(self, carry) -> None:
         """Reuse the loop's carried factorization as refinement's
@@ -282,14 +380,90 @@ class MausSolver:
                 xs, rel = xs2, rel2
         return xs, rel
 
+    # -- eigenpair finisher ---------------------------------------------------
+    def _refine_chunk(self) -> int:
+        """Finisher batch size: the chunk's per-candidate (N, N) factors stay
+        within ``_REFINE_CHUNK_BYTES``, at most ``_REFINE_CHUNK``."""
+        n = max(self.knowledge.shape)
+        itemsize = torch.empty((), dtype=self.config.dtype).element_size()
+        return max(1, min(self._REFINE_CHUNK,
+                          self._REFINE_CHUNK_BYTES // (n * n * itemsize)))
+
+    def _get_A64(self) -> torch.Tensor:
+        """The original operand in complex128 on the device, built once."""
+        if self._A64 is None:
+            self._A64 = self.A_true.to(C128)
+        return self._A64
+
+    def _refine_batch(self, ks: list, lam: torch.Tensor, V: torch.Tensor,
+                      best: dict, psi_rel: Optional[float] = None) -> None:
+        """Run the finisher over the candidates ``ks`` (rows of ``lam``/``V``
+        in the same order) in chunks; a result replaces ``best[k]`` when its
+        residual is finite and lower. ``best[k]`` is (λ, v, residual)."""
+        kw = {} if psi_rel is None else {"psi_rel": psi_rel}
+        CH = self._refine_chunk()
+        A64 = self._get_A64()
+        for i in range(0, len(ks), CH):
+            chunk = ks[i:i + CH]
+            lam_s, V_s, res = refine_eigenpairs(
+                A64, lam[i:i + CH].to(self.config.dtype),
+                V[i:i + CH].to(self.config.dtype), steps=5, **kw)
+            lam_h, V_h, res_h = lam_s.cpu().numpy(), V_s.cpu().numpy(), \
+                res.cpu().numpy()
+            for j, k in enumerate(chunk):
+                if np.isfinite(res_h[j]) and res_h[j] < best[k][2]:
+                    best[k] = (complex(lam_h[j]), V_h[j], float(res_h[j]))
+
+    def _refine_spectral(self, ks: list, lam: torch.Tensor, V: torch.Tensor,
+                         residual: np.ndarray) -> dict:
+        """Finish the eigenpair leaders ``ks`` against the original operand
+        in FP64. Returns {slot: (λ, v, residual)} for the slots the finisher
+        improved. Pairs still above tol after the standard rounds get a
+        small-ψ escalation (``psi_rel`` = 1e-10): ψ perturbs the Newton
+        Jacobian, which stalls pseudospectrally ill-conditioned pairs of
+        non-normal operands."""
+        idx = torch.tensor(ks, device=V.device)
+        best = {k: (None, None, float(residual[k])) for k in ks}
+        self._refine_batch(ks, lam[idx], V[idx], best)
+        fail = [k for k in ks if not (np.isfinite(best[k][2])
+                                      and best[k][2] <= max(self.config.tol, 0.0))]
+        if fail:
+            lam_f = torch.stack([
+                torch.tensor(best[k][0], dtype=C128) if best[k][0] is not None
+                else lam[k].cpu().to(C128) for k in fail]).to(V.device)
+            V_f = torch.stack([
+                torch.from_numpy(best[k][1]) if best[k][1] is not None
+                else V[k].cpu().to(C128) for k in fail]).to(V.device)
+            self._refine_batch(fail, lam_f, V_f, best, psi_rel=1e-10)
+        return {k: b for k, b in best.items() if b[0] is not None}
+
 
 def solve(A, b, tol: float = 1e-8, max_iterations: int = 100,
           num_candidates: Optional[int] = None, seed: int = 0,
           config: Optional[SolverConfig] = None, device=None) -> SolutionReport:
-    """Solve Ax = b on ``device`` (default: the tensor's own device, or the
-    CPU for numpy input)."""
+    """Solve Ax = b on ``device`` (default: the card — a CUDA tensor's own,
+    else ``cuda``; pass ``device="cpu"`` to run on the CPU)."""
     s = MausSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
+                   device=device)
+    return s.evolve(max_iterations)
+
+
+def eig(A, tol: float = 1e-8, max_iterations: int = 200,
+        num_candidates: Optional[int] = None, seed: int = 0,
+        config: Optional[SolverConfig] = None,
+        target_solutions: Optional[int] = None,
+        knowledge: Optional[ProblemKnowledge] = None,
+        device=None) -> SolutionReport:
+    """Eigenpairs of a general (non-Hermitian) square A on ``device``
+    (default: the card, as for :func:`solve`). ``target_solutions``: how
+    many distinct pairs to search for (default N, clamped to the number of
+    candidates). ``knowledge``: a precomputed :class:`ProblemKnowledge`,
+    which skips the diagnosis. A Hermitian A raises NotImplementedError."""
+    s = MausSolver(A, ProblemType.EIGENVALUE,
+                   initial_num_candidates=num_candidates,
+                   global_convergence_tol=tol, config=config, seed=seed,
+                   target_solutions=target_solutions, knowledge=knowledge,
                    device=device)
     return s.evolve(max_iterations)

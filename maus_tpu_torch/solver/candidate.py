@@ -1,10 +1,11 @@
-"""Batched candidate update steps for linear systems.
+"""Batched candidate update steps for linear systems and eigenproblems.
 
 Counterpart of ``maus_tpu/solver/candidate.py`` (``init_population``,
-``_adapt_and_classify``, ``step_linear`` and helpers). One call advances all K
-candidates; solve success or failure, stuckness and convergence are masked
-tensor arithmetic on the :class:`~maus_tpu_torch.core.types.Population`.
-``step_eigen`` and ``step_svd`` wait for their slices.
+``_adapt_and_classify``, ``step_linear``, ``step_eigen`` and helpers). One
+call advances all K candidates; solve success or failure, stuckness and
+convergence are masked tensor arithmetic on the
+:class:`~maus_tpu_torch.core.types.Population`. ``step_svd`` waits for its
+slice.
 """
 from __future__ import annotations
 
@@ -15,9 +16,15 @@ import torch
 from ..core import rng
 from ..core.types import (CandidateStatus, Population, ProblemType, SolverConfig,
                           SolverPreference, StrategyState)
-from ..ops.batched_solve import solve_any
+from ..ops.batched_solve import batched_shifted_solve, psi_ladder, solve_any
 from ..ops.gmres import gmres_batched, jacobi_from_diag
+from ..ops.hessenberg import solve_shifted_via_hessenberg
 from ..ops.regularize import psi_magnitude, shift_diagonal
+
+# Eigen shift locking (step_eigen): a candidate keeps its carried (diverse)
+# shift until its eigenresidual drops below this fraction of the operand's
+# ‖A‖_F/√N scale, then switches to the Rayleigh quotient (RQI).
+_SHIFT_LOCK_FRAC = 0.1
 
 
 @dataclasses.dataclass
@@ -51,15 +58,27 @@ def _frozen(pop: Population) -> torch.Tensor:
 
 
 def init_population(cfg: SolverConfig, seed: int, shape: tuple,
-                    device=None) -> Population:
-    """Zero-mean Gaussian unit iterates, one independent stream per slot."""
-    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+                    device=None, lam_scale=1.0, lam_center=0.0) -> Population:
+    """Zero-mean Gaussian unit iterates, one independent stream per slot.
+
+    Eigenproblems also draw one shift per slot, matched to the spectrum's
+    first two moments: ``lam_center`` = tr(A)/N, ``lam_scale`` =
+    √(‖A‖_F²/N − |center|²), which bounds the RMS eigenvalue distance from
+    the centroid (the reference's fixed ±2.5 window misses spectra that live
+    elsewhere)."""
+    if cfg.problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
+                                ProblemType.EIGENVALUE):
+        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
     n = int(shape[1]) if len(shape) > 1 else int(shape[0])
     K = cfg.num_candidates
     keys = rng.make_candidate_keys(seed, K, device)
     v = rng.normal_rows(keys, range(K), n, cfg.dtype, device)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    lam = torch.zeros((K,), dtype=cfg.dtype, device=device)
+    if cfg.problem_type == ProblemType.EIGENVALUE:
+        lam = rng.normal_scalars(keys, range(K), cfg.dtype, device, stream=1) \
+            * torch.as_tensor(lam_scale, device=device).to(cfg.dtype) \
+            + torch.as_tensor(lam_center, device=device).to(cfg.dtype)
     keys = rng.advance(keys)
     rdt = cfg.real_dtype
 
@@ -68,6 +87,7 @@ def init_population(cfg: SolverConfig, seed: int, shape: tuple,
 
     return Population(
         v=v,
+        lam=lam,
         weight=full(1.0, rdt),
         alpha=full(cfg.alpha_initial, rdt),
         stuck=full(0, torch.int32),
@@ -121,8 +141,15 @@ def _adapt_and_classify(cfg: SolverConfig, pop: Population,
 
     # convergence: residual under the current threshold (floored at the
     # working dtype's reachable precision; refinement closes the rest) and
-    # every parameter finite
-    thresh_eff = torch.clamp_min(strat.threshold, cfg.convergence_floor) * floor_scale
+    # every parameter finite. An eigenpair is accepted only at the user's
+    # tol or the dtype floor, never at the strategy's loosened threshold: a
+    # loosely accepted pair freezes with an O(threshold) vector error and
+    # the finisher snaps several of them onto one true pair.
+    if cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
+        thresh_eff = torch.clamp_min(strat.threshold,
+                                     cfg.convergence_floor) * floor_scale
+    else:
+        thresh_eff = max(cfg.tol, cfg.convergence_floor) * floor_scale
     conv = active & (new_residual < thresh_eff) & params_finite & solve_ok
     status = where(conv, code(CandidateStatus.CONVERGED), status)
     weight = where(conv, torch.ones_like(weight), weight)
@@ -191,6 +218,122 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
     regress = _regress_frac(cfg, pop, resid, frozen)
     pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
                               _finite_rows(v_new))
+    active_f = (~frozen).to(torch.float32)
+    nact = torch.clamp_min(active_f.sum(), 1.0)
+    return pop, StepStats(
+        solve_fail_frac=((~solve_ok).to(torch.float32) * active_f).sum() / nact,
+        regress_frac=regress)
+
+
+def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
+               strat: StrategyState, hess_cache=None
+               ) -> tuple[Population, StepStats]:
+    """One population step for Ax = λx: per-candidate shift, then a batched
+    regularized shifted solve ``(A − λ_k I + Ψ_k) w_k = v_k``.
+
+    With ``hess_cache`` (the shared Hessenberg form A = Q H Qᴴ, built once
+    per evolve) the direct branch solves every shift in O(N²) through kernel
+    K2; without it, one LU per candidate. Under the GMRES preference the
+    step is a Jacobi–Davidson correction instead. A candidate keeps its
+    carried (diverse) shift until its eigenresidual drops below
+    ``_SHIFT_LOCK_FRAC``·‖A‖_F/√N, then switches to the Rayleigh quotient."""
+    N = A.shape[0]
+    K = pop.capacity
+    rdt = cfg.real_dtype
+    anorm = (torch.linalg.vector_norm(A) / torch.sqrt(torch.tensor(
+        float(N), dtype=A.real.dtype, device=A.device))).to(torch.float32)
+    psi_scaled = cfg.psi_base * anorm * 1e6   # ≈ ε²·‖A‖ for complex64
+
+    Av = pop.v @ A.T
+    vv = torch.sum(pop.v.conj() * pop.v, dim=-1)
+    rq = torch.where(vv.abs() > 1e-12,
+                     torch.sum(pop.v.conj() * Av, dim=-1) / vv, pop.lam)
+    aligned = pop.residual < _SHIFT_LOCK_FRAC * anorm
+    lam = torch.where(aligned, rq, pop.lam)
+
+    if int(strat.solver_pref) == SolverPreference.DIRECT:
+        if hess_cache is not None:
+            def solve_at(attempt_k):
+                psi = psi_magnitude(psi_scaled, strat.psi_aggression,
+                                    attempt_k, pop.stuck)
+                return solve_shifted_via_hessenberg(hess_cache, lam, pop.v, psi)
+
+            W, attempts = psi_ladder(solve_at, K, cfg.max_psi_attempts,
+                                     device=A.device)
+        else:
+            W, attempts = batched_shifted_solve(
+                A, lam, pop.stuck, psi_scaled, strat.psi_aggression, pop.v,
+                max_attempts=cfg.max_psi_attempts)
+    else:
+        # Jacobi–Davidson correction: inverse iteration through the nearly
+        # singular (A − λI) is where restarted GMRES stalls, so solve the
+        # projected system (I − vvᴴ)(A − λI)(I − vvᴴ) t = −r, t ⊥ v, which is
+        # well conditioned on v's complement, and step to v + t.
+        vk = pop.v
+        r = Av - lam[:, None] * vk
+
+        def cproj(X):
+            return X - torch.sum(vk.conj() * X, dim=-1, keepdim=True) * vk
+
+        def matvec(X):
+            Xp = cproj(X)
+            return cproj(Xp @ A.T - lam[:, None] * Xp)
+
+        diag = torch.diagonal(A)[None, :] - lam[:, None]
+        res = gmres_batched(matvec, -cproj(r), x0=torch.zeros_like(vk),
+                            precond_diag=jacobi_from_diag(diag), tol=1e-2,
+                            restart=min(32, N), max_restarts=2)
+        W = vk + cproj(res.x)
+        attempts = torch.zeros((K,), dtype=torch.int32, device=A.device)
+
+    tiny = torch.finfo(rdt).tiny
+    solve_ok = _finite_rows(W) & (torch.linalg.vector_norm(W, dim=-1) > 0)
+    frozen = _frozen(pop)
+    pop = dataclasses.replace(
+        pop, psi_level=torch.where(frozen, pop.psi_level,
+                                   attempts.to(torch.int32)))
+
+    # damped update + renormalize: normalize w before mixing so α mixes
+    # directions, and align its phase with v so the mix does not cancel
+    Wn = W / torch.clamp_min(torch.linalg.vector_norm(W, dim=-1, keepdim=True),
+                             tiny)
+    phase = torch.sum(Wn.conj() * pop.v, dim=-1)
+    phase = torch.where(phase.abs() > 1e-12, phase / phase.abs(),
+                        torch.ones_like(phase))
+    Wn = Wn * phase[:, None]
+    # while the shift is locked, take the full inverse-iteration step;
+    # α-damped mixing resumes with RQI
+    alpha_eff = torch.where(aligned, pop.alpha.to(rdt),
+                            torch.ones((), dtype=rdt, device=A.device))
+    alpha_c = alpha_eff.to(cfg.dtype)[:, None]
+    v_new = (1.0 - alpha_c) * pop.v + alpha_c * Wn
+    v_new = v_new / torch.clamp_min(
+        torch.linalg.vector_norm(v_new, dim=-1, keepdim=True), tiny)
+    v_new = torch.where(solve_ok[:, None], v_new, pop.v)
+
+    # Rayleigh quotient and residual against the operand
+    Av_new = v_new @ A.T
+    lam_new = torch.sum(v_new.conj() * Av_new, dim=-1)
+    resid = torch.linalg.vector_norm(Av_new - lam_new[:, None] * v_new, dim=-1)
+
+    # the carried λ: a locked shift persists until the NEW iterate aligns
+    aligned_new = resid < _SHIFT_LOCK_FRAC * anorm
+    lam_keep = torch.where(aligned_new, lam_new, pop.lam)
+    pop = dataclasses.replace(pop,
+                              v=torch.where(frozen[:, None], pop.v, v_new),
+                              lam=torch.where(frozen, pop.lam, lam_keep))
+    # acceptance/regress scale: max(‖A‖_F/√N, max |RQ|); the Rayleigh
+    # quotients of unit iterates lower-bound ‖A‖₂ on low-rank spectra
+    lam_abs = pop.lam.abs()
+    scale_eff = torch.maximum(
+        anorm.to(rdt),
+        torch.max(torch.where(torch.isfinite(lam_abs), lam_abs,
+                              torch.zeros_like(lam_abs))).to(rdt))
+    resid = resid.to(rdt)
+    regress = _regress_frac(cfg, pop, resid, frozen, floor_scale=scale_eff)
+    pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
+                              _finite_rows(v_new) & _finite_rows(lam_new[:, None]),
+                              floor_scale=scale_eff)
     active_f = (~frozen).to(torch.float32)
     nact = torch.clamp_min(active_f.sum(), 1.0)
     return pop, StepStats(

@@ -209,6 +209,8 @@ def diagnose(A, problem_type: ProblemType,
              device_full: torch.Tensor = None,
              device_exact: bool = False) -> ProblemKnowledge:
     """Classify a square operand (reference ``_diagnose_matrix_initial``).
+    Linear systems and eigenproblems are diagnosed alike; the JAX package
+    differs only for SVD (its rank probe), which is not ported.
 
     ``A``: the host operand, or ``None`` when the operand exists only on the
     device (a tensor input). ``device_operand``: the working-dtype copy on
@@ -217,8 +219,10 @@ def diagnose(A, problem_type: ProblemType,
     complex128 input whose working copy is rounded; structure is then
     measured on the exact data. ``device_exact``: the working copy IS the
     user's exact data (float32/complex64 input)."""
-    if problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+    problem_type = ProblemType(problem_type)
+    if problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
+                            ProblemType.EIGENVALUE):
+        raise NotImplementedError(f"{problem_type.name} is not ported")
     if A is None:
         if device_operand is None:
             raise ValueError("diagnose needs either a host operand or "
@@ -236,7 +240,7 @@ def diagnose(A, problem_type: ProblemType,
             raise ValueError(f"expected a 2-D operand, got shape {Ad.shape}")
         m, n = Ad.shape
     if m != n:
-        raise ValueError(f"SOLVE_LINEAR_SYSTEM requires a square matrix, "
+        raise ValueError(f"{problem_type.name} requires a square matrix, "
                          f"got {(m, n)}")
     big = m * n > 10_000_000
     # (is_hermitian, is_complex_symmetric, is_positive_definite)

@@ -1,16 +1,20 @@
-"""The evolution loop for linear systems.
+"""The evolution loop for linear systems and non-Hermitian eigenproblems.
 
-Counterpart of ``maus_tpu/solver/evolve.py`` (linear branch:
-``_effective_psi``, ``make_iteration``, ``init_carry``, ``_stop_condition``,
-``evolve_while``). The JAX ``lax.while_loop`` becomes an eager Python loop with
-a stop check after every iteration; the ``lax.cond`` around the shared
-refactorization becomes a Python branch on a host read. Per-iteration order is
-the reference's: diagnostics → strategy adjustment → candidate step →
-population management. The shared factorization is carried across iterations
-and rebuilt only when the strategy's Ψ rung changes.
+Counterpart of ``maus_tpu/solver/evolve.py`` (``_effective_psi``,
+``make_iteration``, ``init_carry``, ``_use_hessenberg``, ``_setup_caches``,
+``_stop_condition``, ``evolve_while``). The JAX ``lax.while_loop`` becomes an
+eager Python loop with a stop check after every iteration; the ``lax.cond``
+around the shared refactorization becomes a Python branch on a host read.
+Per-iteration order is the reference's: diagnostics → strategy adjustment →
+candidate step → population management. The linear path carries its shared
+factorization across iterations and rebuilds it only when the strategy's Ψ
+rung changes; the eig path carries no factorization and builds the shared
+Hessenberg form once per evolve.
 
 Not carried over: the host-refactor handoff and ``refactor_psi`` (an XLA:TPU
-scoped-VMEM workaround) and the mesh branches (a later slice).
+scoped-VMEM workaround), the hoisted large-N Hessenberg program (a TPU fault
+workaround) and the mesh branches (a later slice). The Hermitian eig paths
+(shared eigh, deflated Lanczos) are slice 3: a Hermitian operand raises.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from ..core.types import (CandidateStatus, Population, ProblemKnowledge,
                           ProblemType, SolverConfig, StrategyState,
                           initial_strategy)
 from ..ops.batched_solve import shared_factor_hpd, shared_factor_qr
+from ..ops.hessenberg import HessCache, reduce_hessenberg_auto
 from ..ops.regularize import pow10, psi_magnitude
 from . import candidate as cand
 from . import population as popmgmt
@@ -33,7 +38,7 @@ from . import strategy as strat_mod
 class EvolveCarry:
     pop: Population
     strat: StrategyState
-    fac: object                  # QRFactors / CholFactors / LUFactors
+    fac: object                  # QRFactors / CholFactors / LUFactors; None (eig)
     psi_cached: torch.Tensor     # f32 — Ψ the carried factorization was built with
     iteration: torch.Tensor      # i32
     best_residual: torch.Tensor  # f32 — previous iteration's best active residual
@@ -65,24 +70,54 @@ def _refactor(knowledge: ProblemKnowledge, A: torch.Tensor, psi):
         else shared_factor_qr(A, psi)
 
 
+def _spectral_moments(A: torch.Tensor):
+    """(center, spread) of the spectrum: tr(A)/N, and
+    √(‖A‖_F²/N − |center|²) in A's real dtype, which bounds the RMS
+    eigenvalue distance from the centroid."""
+    n = A.shape[-1]
+    center = (torch.trace(A) / n).to(A.dtype)
+    spread = torch.sqrt(torch.clamp_min(
+        torch.linalg.vector_norm(A) ** 2 / n - center.abs() ** 2, 1e-12))
+    return center, spread
+
+
+def _check_ported(cfg: SolverConfig, knowledge: ProblemKnowledge) -> None:
+    if cfg.problem_type == ProblemType.EIGENVALUE and knowledge.is_hermitian:
+        raise NotImplementedError("Hermitian eig (shared eigh, deflated "
+                                  "Lanczos) is not ported to maus_tpu_torch yet")
+    if cfg.problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
+                                ProblemType.EIGENVALUE):
+        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
+
+
 def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
-                   A: torch.Tensor, b: torch.Tensor, target_solutions: int):
-    """Build the single-iteration function ``carry → carry``."""
-    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+                   A: torch.Tensor, b: Optional[torch.Tensor],
+                   target_solutions: int,
+                   hess_cache: Optional[HessCache] = None):
+    """Build the single-iteration function ``carry → carry``.
+    ``hess_cache``: the shared Hessenberg form of A (eig path)."""
+    _check_ported(cfg, knowledge)
     anorm = _anorm(A)
+    lam_center, lam_spread = _spectral_moments(A)
+    lam_spread = lam_spread.to(torch.float32)
+    linear = cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
 
     def iteration(carry: EvolveCarry) -> EvolveCarry:
         pop, strat = carry.pop, carry.strat
         diag = strat_mod.compute_diagnostics(cfg, pop, strat, target_solutions)
         strat = strat_mod.adjust_strategy(cfg, strat, diag)
 
-        psi_eff = _effective_psi(cfg, strat, anorm).to(carry.psi_cached.dtype)
-        fac = carry.fac
-        if bool(psi_eff != carry.psi_cached):
-            fac = _refactor(knowledge, A, psi_eff)
-        pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat)
-        pop = popmgmt.manage(cfg, pop, strat, diag, target_solutions)
+        fac, psi_eff = carry.fac, carry.psi_cached
+        if linear:
+            psi_eff = _effective_psi(cfg, strat, anorm).to(carry.psi_cached.dtype)
+            if bool(psi_eff != carry.psi_cached):
+                fac = _refactor(knowledge, A, psi_eff)
+            pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat)
+        else:
+            pop, stats = cand.step_eigen(cfg, A, pop, strat,
+                                         hess_cache=hess_cache)
+        pop = popmgmt.manage(cfg, pop, strat, diag, target_solutions,
+                             lam_scale=lam_spread, lam_center=lam_center)
 
         # population-level escalation pressure (see _effective_psi)
         bad_step = (stats.solve_fail_frac > 0.5) | (stats.regress_frac > 0.5)
@@ -125,19 +160,39 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
 
 def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
                seed: int) -> EvolveCarry:
-    """Initial population, strategy and shared factorization at the first Ψ."""
-    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
+    """Initial population and strategy; for a linear system also the shared
+    factorization at the first Ψ (an eigenproblem carries none)."""
+    _check_ported(cfg, knowledge)
     device = A.device
-    pop = cand.init_population(cfg, seed, knowledge.shape, device=device)
+    lam_center, lam_scale = _spectral_moments(A)
+    pop = cand.init_population(cfg, seed, knowledge.shape, device=device,
+                               lam_scale=lam_scale, lam_center=lam_center)
     strat = initial_strategy(cfg, knowledge, device=device)
-    psi0 = _effective_psi(cfg, strat, _anorm(A))
-    fac = _refactor(knowledge, A, psi0)
+    if cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
+        psi0 = _effective_psi(cfg, strat, _anorm(A))
+        fac = _refactor(knowledge, A, psi0)
+    else:
+        fac, psi0 = None, torch.tensor(0.0, dtype=torch.float32, device=device)
     return EvolveCarry(
         pop=pop, strat=strat, fac=fac, psi_cached=psi0,
         iteration=torch.tensor(0, dtype=torch.int32, device=device),
         best_residual=torch.tensor(float("inf"), dtype=torch.float32, device=device),
         stall_count=torch.tensor(0, dtype=torch.int32, device=device))
+
+
+def _use_hessenberg(cfg: SolverConfig, knowledge: ProblemKnowledge) -> bool:
+    """Shared Hessenberg reduction for the non-Hermitian eig path: one O(N³)
+    setup turns every per-candidate shifted solve into O(N²)."""
+    return cfg.problem_type == ProblemType.EIGENVALUE and \
+        not knowledge.is_hermitian and cfg.use_hessenberg
+
+
+def _setup_caches(cfg: SolverConfig, knowledge: ProblemKnowledge,
+                  A: torch.Tensor) -> Optional[HessCache]:
+    """The per-evolve one-time factorization shared by every iteration: the
+    Hessenberg form A = Q H Qᴴ on the non-Hermitian eig path, else None."""
+    _check_ported(cfg, knowledge)
+    return reduce_hessenberg_auto(A) if _use_hessenberg(cfg, knowledge) else None
 
 
 def _stop_condition(cfg: SolverConfig, target_solutions: int,
@@ -150,14 +205,19 @@ def _stop_condition(cfg: SolverConfig, target_solutions: int,
 
 
 def evolve_while(cfg: SolverConfig, knowledge: ProblemKnowledge,
-                 A: torch.Tensor, b: torch.Tensor, seed: int,
+                 A: torch.Tensor, b: Optional[torch.Tensor], seed: int,
                  max_iterations: int, target_solutions: int,
-                 carry0: Optional[EvolveCarry] = None) -> EvolveCarry:
+                 carry0: Optional[EvolveCarry] = None,
+                 hess_cache: Optional[HessCache] = None) -> EvolveCarry:
     """Iterate until the stop condition holds or ``max_iterations`` (a bound
-    on the carry's total iteration count) is reached. The caller sets the
-    matmul precision (``utils/precision.full_precision``, as
-    ``MausSolver.evolve`` does)."""
-    step = make_iteration(cfg, knowledge, A, b, target_solutions)
+    on the carry's total iteration count) is reached. ``hess_cache``: a
+    prebuilt shared Hessenberg form (eig path); built here when not given.
+    The caller sets the matmul precision (``utils/precision.full_precision``,
+    as ``MausSolver.evolve`` does)."""
+    if hess_cache is None:
+        hess_cache = _setup_caches(cfg, knowledge, A)
+    step = make_iteration(cfg, knowledge, A, b, target_solutions,
+                          hess_cache=hess_cache)
     carry = carry0 if carry0 is not None else init_carry(cfg, knowledge, A, seed)
     while not bool((carry.iteration >= max_iterations) |
                    _stop_condition(cfg, target_solutions, carry)):

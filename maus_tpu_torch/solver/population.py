@@ -1,8 +1,12 @@
 """Population management — retire / prune / respawn as masked slot reuse.
 
-Counterpart of ``maus_tpu/solver/population.py`` for linear systems: converged
-duplicates and pruned candidates flip to RETIRED, and respawning
-re-initializes RETIRED slots in place with fresh random iterates.
+Counterpart of ``maus_tpu/solver/population.py`` for linear systems and
+eigenproblems: converged duplicates and pruned candidates flip to RETIRED, and
+respawning re-initializes RETIRED slots in place. A respawned linear slot
+takes a fresh random iterate. A respawned eig slot either warm-starts near a
+claimed eigenpair (when the landscape is calm) or explores: a fresh shift
+pushed away from the claimed eigenvalues and a fresh vector deflated once
+against the claimed eigenvectors.
 """
 from __future__ import annotations
 
@@ -15,12 +19,72 @@ from ..core.types import (CandidateStatus, Population, ProblemType, SolverConfig
                           StrategyState)
 from .strategy import Diagnostics
 
+# independent per-slot draws of one respawn (the first, stream 0, is the
+# fresh vector)
+_PICK, _NOISE_V, _NOISE_LAM, _FRESH_LAM, _BUMP = 1, 2, 3, 4, 5
+
+
+def _eig_respawn(cfg: SolverConfig, pop: Population, diag: Diagnostics,
+                 rows: list, fresh_v: torch.Tensor, lam_scale, lam_center):
+    """(new_v, new_lam) of the respawned slots ``rows``: warm starts on even
+    slots while a leader exists and the landscape energy is below 0.8,
+    explorers otherwise."""
+    dtype, rdt = cfg.dtype, cfg.real_dtype
+    device = pop.v.device
+    n = pop.v.shape[1]
+    leader = diag.distinct_leader
+    have_leader = bool(leader.any())
+    lam_scale = torch.as_tensor(lam_scale, device=device).to(rdt)
+    lam_center = torch.as_tensor(lam_center, device=device).to(dtype)
+
+    # warm start: near a leader picked uniformly at random
+    if have_leader:
+        logits = torch.where(leader, 0.0, float("-inf")).to(torch.float32)
+        picked = rng.categorical(pop.keys, rows, logits, stream=_PICK)
+    else:
+        picked = torch.zeros((len(rows),), dtype=torch.int64, device=device)
+    scale = (0.1 + diag.landscape_energy).to(rdt)
+    warm_v = pop.v[picked] + rng.normal_rows(pop.keys, rows, n, dtype, device,
+                                             stream=_NOISE_V) * scale * 0.1
+    warm_v = warm_v / torch.clamp_min(
+        torch.linalg.vector_norm(warm_v, dim=-1, keepdim=True),
+        torch.finfo(rdt).tiny)
+    warm_lam = pop.lam[picked] + rng.normal_scalars(
+        pop.keys, rows, dtype, device, stream=_NOISE_LAM) * scale * 0.05
+
+    # explorers: fresh shifts over the spectral scale, bumped away from the
+    # eigenvalues that leaders already claim
+    fresh_lam = rng.normal_scalars(pop.keys, rows, dtype, device,
+                                   stream=_FRESH_LAM) * lam_scale.to(dtype) \
+        + lam_center
+    lam_claimed = torch.where(leader, pop.lam, torch.full_like(
+        pop.lam, complex(float("inf"), 0.0)))
+    min_dist = (fresh_lam[:, None] - lam_claimed[None, :]).abs().amin(dim=-1)
+    too_close = min_dist < 0.05 * lam_scale
+    bump = rng.normal_scalars(pop.keys, rows, dtype, device, stream=_BUMP)
+    bump = bump / torch.clamp_min(bump.abs(), 1e-30) * 0.2 * lam_scale.to(dtype)
+    fresh_lam = torch.where(too_close, fresh_lam + bump, fresh_lam)
+    # a one-time deflation against the claimed eigenvectors, so inverse
+    # iteration first amplifies unclaimed components
+    Vc = pop.v * leader.to(dtype)[:, None]
+    coeff = Vc.conj() @ fresh_v.T                      # (K, R)
+    fresh_defl = fresh_v - coeff.T @ Vc
+    nrm = torch.linalg.vector_norm(fresh_defl, dim=-1, keepdim=True)
+    fresh_v = torch.where(nrm > 1e-6, fresh_defl / torch.clamp_min(nrm, 1e-30),
+                          fresh_v)
+
+    slot_parity = (torch.tensor(rows, device=device) % 2) == 0
+    use_warm = (diag.landscape_energy < 0.8) & slot_parity & have_leader
+    return (torch.where(use_warm[:, None], warm_v, fresh_v),
+            torch.where(use_warm, warm_lam, fresh_lam))
+
 
 def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
-           diag: Diagnostics, target_solutions: int) -> Population:
-    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
-    K = pop.capacity
+           diag: Diagnostics, target_solutions: int,
+           lam_scale=1.0, lam_center=0.0) -> Population:
+    if cfg.problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
+                                ProblemType.EIGENVALUE):
+        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
     rdt = cfg.real_dtype
     i8 = torch.int8
 
@@ -49,12 +113,19 @@ def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
     # 4) re-initialize respawned slots; a slot draws only when it respawns
     keys = rng.advance(pop.keys)
     rows = torch.nonzero(respawn).flatten().tolist()
-    v = pop.v
+    v, lam = pop.v, pop.lam
     if rows:
         fresh = rng.normal_rows(pop.keys, rows, v.shape[1], cfg.dtype, v.device)
         fresh = fresh / torch.linalg.vector_norm(fresh, dim=-1, keepdim=True)
-        v = v.clone()
+        if cfg.problem_type == ProblemType.EIGENVALUE:
+            fresh, fresh_lam = _eig_respawn(cfg, pop, diag, rows, fresh,
+                                            lam_scale, lam_center)
+        else:
+            fresh_lam = torch.zeros((len(rows),), dtype=lam.dtype,
+                                    device=lam.device)
+        v, lam = v.clone(), lam.clone()
         v[rows] = fresh
+        lam[rows] = fresh_lam
 
     # spawned α gets the aggression boost, capped at 1 (computed in f32)
     spawn_alpha = torch.clamp_max(cfg.alpha_initial *
@@ -67,7 +138,7 @@ def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
                                               device=like.device), like)
 
     return dataclasses.replace(
-        pop, v=v,
+        pop, v=v, lam=lam,
         weight=fill(0.01, pop.weight),
         alpha=torch.where(r, spawn_alpha, pop.alpha),
         stuck=fill(0, pop.stuck),

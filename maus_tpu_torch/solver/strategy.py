@@ -1,10 +1,11 @@
-"""Global diagnostics and strategy adaptation for linear systems.
+"""Global diagnostics and strategy adaptation.
 
 Counterpart of ``maus_tpu/solver/strategy.py`` (``compute_diagnostics``,
-``adjust_strategy``). The distinct-solution registry is one K×K Gram matrix;
-the leader election over it is sequential in priority order, so it runs on
-the host over the K×K boolean matrix (K is the population size, 16 on the
-headline problem). The eig and SVD similarity rules wait for their slices.
+``adjust_strategy``). The distinct-solution registry is one K×K 'same
+solution' matrix; the leader election over it is sequential in priority
+order, so it runs on the host over the K×K boolean matrix (K is the
+population size, 16 or 32 on the headline problems). The SVD similarity rule
+waits for its slice.
 """
 from __future__ import annotations
 
@@ -30,14 +31,31 @@ class Diagnostics:
 
 
 def _pairwise_same(cfg: SolverConfig, pop: Population) -> torch.Tensor:
-    """K×K 'same solution' matrix for linear systems: ‖x_i − x_j‖ < 100·tol,
-    as ‖x_i‖² + ‖x_j‖² − 2·Re⟨x_i, x_j⟩ from one Gram matrix."""
+    """K×K 'same solution' matrix.
+
+    * eig: |Δλ| < λ_tol + |λ|·1e-6 + 4·(r_i + r_j) and |⟨v_i, v_j⟩| > 0.999.
+      The residual band covers the value noise of two backward-stable
+      approximations of one eigenpair (~κ·(r_i + r_j), Bauer–Fike); the
+      vector overlap keeps clustered spectra unmerged.
+    * linear: ‖x_i − x_j‖ < 100·tol, from the differences themselves. The
+      JAX package takes ‖x_i‖² + ‖x_j‖² − 2·Re⟨x_i, x_j⟩ from one Gram
+      matrix, whose cancellation noise in the working dtype (~ε·‖x‖², 1e7
+      for ‖x‖ ≈ 1e7 at κ = 1e6 in complex64) swamps the 1e-12 threshold, so
+      identical candidates count as distinct there; here they count as one
+      (a recorded divergence, ROADMAP Queue 3)."""
+    if cfg.problem_type == ProblemType.EIGENVALUE:
+        gram_v = (pop.v.conj() @ pop.v.T).abs()
+        r_eff = torch.where(torch.isfinite(pop.residual), pop.residual,
+                            torch.zeros_like(pop.residual))
+        band = 4.0 * (r_eff[:, None] + r_eff[None, :])
+        dlam = (pop.lam[:, None] - pop.lam[None, :]).abs()
+        tol = cfg.lambda_similarity_tol + pop.lam.abs()[None, :] * 1e-6 + band
+        return (dlam < tol) & (gram_v > cfg.vector_similarity_tol)
     if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError("only SOLVE_LINEAR_SYSTEM is ported")
-    nrm2 = torch.sum(pop.v.abs() ** 2, dim=-1)
-    G = (pop.v.conj() @ pop.v.T).real
-    d2 = torch.clamp_min(nrm2[:, None] + nrm2[None, :] - 2.0 * G, 0.0)
-    return d2 < (cfg.tol * 100) ** 2
+        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
+    X = torch.view_as_real(pop.v.resolve_conj()).reshape(pop.v.shape[0], -1)
+    d = torch.cdist(X, X, compute_mode="donot_use_mm_for_euclid_dist")
+    return d < cfg.tol * 100
 
 
 def compute_diagnostics(cfg: SolverConfig, pop: Population, strat: StrategyState,

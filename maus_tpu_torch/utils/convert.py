@@ -17,6 +17,7 @@ import torch
 
 from ..core.types import Population, StrategyState
 from ..ops.batched_solve import CholFactors, LUFactors, QRFactors
+from ..ops.hessenberg import HessCache
 
 
 def _t(a, device) -> torch.Tensor:
@@ -49,11 +50,17 @@ def fac_from_numpy(fac, device):
                      _t(np.asarray(fac.piv).astype(np.int32) + 1, device))
 
 
+def hess_from_numpy(cache, device=None) -> HessCache:
+    """The port's ``HessCache`` from the JAX package's (fields ``h``, ``q``,
+    numpy leaves)."""
+    return HessCache(h=_t(cache.h, device).contiguous(), q=_t(cache.q, device))
+
+
 def carry_from_numpy(leaves, device=None):
     """The port's ``EvolveCarry`` from the JAX package's carry with numpy
     leaves (fields ``pop``, ``strat``, ``fac``, ``psi_cached``,
-    ``iteration``, ``best_residual``, ``stall_count``; ``refactor_psi`` is
-    ignored)."""
+    ``iteration``, ``best_residual``, ``stall_count``; ``refactor_psi`` and
+    the SVD vector ``pop.u`` are ignored). An eig carry has ``fac=None``."""
     from ..solver.evolve import EvolveCarry
 
     pop = leaves.pop

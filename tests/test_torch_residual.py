@@ -11,12 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from maus_tpu.ops.pallas.slice_residual import (sliced_residual_fused,
-                                                split_triple, split_triple_c64)
-from maus_tpu.ops.refine import SplitComplex
 from maus_tpu_torch.ops.kernels import residual
 
-import jax.numpy as jnp
+try:
+    import jax.numpy as jnp
+
+    from maus_tpu.ops.pallas.slice_residual import (sliced_residual_fused,
+                                                    split_triple, split_triple_c64)
+    from maus_tpu.ops.refine import SplitComplex
+except ImportError:     # a GPU machine without JAX runs the cuda tests only
+    jnp = None
 
 torch.set_num_threads(1)
 
@@ -39,6 +43,7 @@ def _operands(dtype, ascale, xscale, seed=4, m=256, n=256):
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
 @pytest.mark.parametrize("ascale,xscale", [(1.0, 1.0), (1e-3, 1e5), (1e7, 1e-6)])
 def test_plain_matches_interpret_mode_pallas(dtype, ascale, xscale):
+    pytest.importorskip("jax")
     A, x, b = _operands(dtype, ascale, xscale)
     if dtype == np.complex64:
         tri = split_triple_c64(jnp.asarray(A))

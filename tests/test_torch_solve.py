@@ -95,15 +95,48 @@ def test_solve_matches_jax(system, dtype):
 
 
 def test_solve_accepts_tensors_and_keeps_their_device():
+    """A tensor input runs where ``device`` says: a CPU tensor with
+    ``device="cpu"`` stays on the CPU, in the CPU's complex128 working dtype
+    (without ``device`` it would go to the card, see the tests below)."""
     A, b = gen.well_conditioned_system(32, seed=5)
     At = torch.from_numpy(A.astype(np.complex64))
     bt = torch.from_numpy(b.astype(np.complex64))
     s = maus_tpu_torch.MausSolver(At, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM,
-                                  b_vector=bt)
+                                  b_vector=bt, device="cpu")
     assert s.device.type == "cpu" and s.config.dtype == torch.complex128
     rep = s.evolve(50)
     assert rep.converged and _rel(A.astype(np.complex64), rep.best()[0], b.astype(
         np.complex64)) <= TOL
+
+
+def test_default_device_raises_without_cuda():
+    """Without ``device`` the entry points run on the card; where there is
+    none they raise and name ``device="cpu"`` instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs there")
+    A, b = gen.well_conditioned_system(8)
+    calls = (lambda: maus_tpu_torch.solve(A, b),
+             lambda: maus_tpu_torch.solve(torch.from_numpy(A), torch.from_numpy(b)),
+             lambda: maus_tpu_torch.eig(A),
+             lambda: maus_tpu_torch.MausSolver(
+                 A, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b))
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A, b = gen.well_conditioned_system(32, seed=5)
+    s = maus_tpu_torch.MausSolver(A, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM,
+                                  b_vector=torch.from_numpy(b))
+    assert s.device.type == "cuda" and s.config.dtype == torch.complex64
+    At = torch.from_numpy(A).to("cuda")
+    s = maus_tpu_torch.MausSolver(At, maus_tpu_torch.ProblemType.SOLVE_LINEAR_SYSTEM,
+                                  b_vector=b)
+    assert s.device == At.device
 
 
 def test_convergence_floor_policy():
@@ -127,26 +160,76 @@ def test_floor_cap_divergence_from_reference():
         dtype=jnp.complex64, convergence_floor=ref_floor), **kw)
     assert not rj.converged and rj.solutions == []
     rt_ref = maus_tpu_torch.solve(A, b, config=maus_tpu_torch.SolverConfig(
-        dtype=torch.complex64, convergence_floor=ref_floor), **kw)
+        dtype=torch.complex64, convergence_floor=ref_floor), device="cpu", **kw)
     assert not rt_ref.converged
     rt = maus_tpu_torch.solve(A, b, config=maus_tpu_torch.SolverConfig(
         dtype=torch.complex64,
-        convergence_floor=convergence_floor(torch.complex64, kappa)), **kw)
+        convergence_floor=convergence_floor(torch.complex64, kappa)),
+        device="cpu", **kw)
     assert rt.converged and _rel(A, rt.best()[0], b) <= TOL
+
+
+def test_duplicate_detection_divergence_from_reference():
+    """Recorded divergence: on κ = 1e6 systems, K bitwise-identical converged
+    candidates of norm 1e6 to 1e8 in complex64. The JAX package decides
+    ‖x_i − x_j‖ < 100·tol from ‖x_i‖² + ‖x_j‖² − 2·Re⟨x_i, x_j⟩, whose f32
+    cancellation noise (~ε·‖x‖², far above (100·tol)²) decides the answer
+    by its sign: where it rounds up, the JAX package counts all K as
+    distinct. The port takes the differences themselves and counts one on
+    every input."""
+    import dataclasses
+
+    import jax
+
+    from maus_tpu.solver import evolve as ej
+    from maus_tpu.solver import strategy as sj
+    from maus_tpu_torch.solver import strategy as st
+    from maus_tpu_torch.utils.convert import carry_from_numpy
+
+    K = 16
+    cfg_j = maus_tpu.SolverConfig(dtype=jnp.complex64, num_candidates=K)
+    cfg_t = maus_tpu_torch.SolverConfig(dtype=torch.complex64, num_candidates=K)
+    counts_j = []
+    for n, seed, norm in ((64, 2, 1e7), (64, 0, 1e6), (128, 1, 1e6), (64, 3, 1e8)):
+        A, b = gen.ill_conditioned_system(n, 1e6, seed=seed)
+        x = np.linalg.solve(A, b)
+        x = (x * (norm / np.linalg.norm(x))).astype(np.complex64)
+        kn = maus_tpu.ProblemKnowledge(shape=A.shape, cond_estimate=1e6)
+        carry = ej.init_carry(cfg_j, kn, jnp.asarray(A.astype(np.complex64)),
+                              jax.random.PRNGKey(0))
+        leaves = jax.tree.map(np.asarray, carry)
+        pop = dataclasses.replace(
+            leaves.pop, v=np.tile(x, (K, 1)),
+            status=np.full(K, int(maus_tpu.core.types.CandidateStatus.CONVERGED),
+                           np.int8),
+            residual=np.full(K, 1e-9, np.float32))
+        leaves = leaves._replace(pop=pop)
+        dj_ = sj.compute_diagnostics(cfg_j, jax.tree.map(jnp.asarray, pop),
+                                     jax.tree.map(jnp.asarray, leaves.strat), 1)
+        counts_j.append(int(dj_.num_distinct))
+        ct = carry_from_numpy(leaves, torch.device("cpu"))
+        dt_ = st.compute_diagnostics(cfg_t, ct.pop, ct.strat, 1)
+        assert int(dt_.num_distinct) == 1
+        assert int(dt_.duplicate.sum()) == K - 1
+    assert max(counts_j) == K
 
 
 def test_rejects_what_is_not_ported():
     A, b = gen.well_conditioned_system(8)
     with pytest.raises(NotImplementedError):
-        maus_tpu_torch.MausSolver(A, maus_tpu_torch.ProblemType.EIGENVALUE)
+        maus_tpu_torch.MausSolver(A, maus_tpu_torch.ProblemType.SVD, device="cpu")
+    with pytest.raises(NotImplementedError):
+        maus_tpu_torch.eig(gen.hermitian_matrix(8), device="cpu")
     with pytest.raises(ValueError):
-        maus_tpu_torch.solve(A[:, :6], b)
+        maus_tpu_torch.solve(A[:, :6], b, device="cpu")
     with pytest.raises(ValueError):
-        maus_tpu_torch.solve(A, b[:5])
+        maus_tpu_torch.solve(A, b[:5], device="cpu")
+    with pytest.raises(ValueError):
+        maus_tpu_torch.eig(A[:, :6], device="cpu")
     bad = A.copy()
     bad[0, 0] = np.nan
     with pytest.raises(ValueError):
-        maus_tpu_torch.solve(bad, b)
+        maus_tpu_torch.solve(bad, b, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["general", "hermitian-pd", "hermitian-indefinite",
@@ -193,7 +276,7 @@ def test_device_cond_probe(kappa):
 def test_truth_report_matches_jax():
     """utils/truth on the port's report gives what the JAX package's gives."""
     A, b = gen.well_conditioned_system(32, seed=9)
-    rep = maus_tpu_torch.solve(A, b, tol=1e-10)
+    rep = maus_tpu_torch.solve(A, b, tol=1e-10, device="cpu")
     rt_ = tt.compare(rep, A, b)
     rj_ = tj.compare(rep, A, b)
     assert rt_.matched == rj_.matched == 1 and rt_.total_found == 1
