@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of maus_tpu_torch on one NVIDIA GPU: the quickest proof that the
 port builds, that its kernels agree with their plain versions, and that its
-two main paths run on the card through those kernels: a dense,
+three main paths run on the card through those kernels: a dense,
 ill-conditioned complex64 Ax=b at 4096², κ = 1e6, solved to 1e-8 (kernel
-K1), and 16 eigenpairs of a general complex64 4096² operand to 1e-8 (kernel
-K2).
+K1); 16 eigenpairs of a general complex64 4096² operand to 1e-8 (kernel K2,
+and the blocked LU P3/P4 with the complex GEMM K3 in its finisher); and 16
+singular triplets of a 4096×2048 operand to 1e-6 (P3, P4 and K3 in its
+finisher).
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
   0. the card, as nvidia-smi names it, with its power limit;
-  1. build kernels K1 and K2 from maus_tpu_torch/csrc/ (one nvcc per source);
+  1. build kernels K1, K2, K3, P3 and P4 from maus_tpu_torch/csrc/ (one nvcc
+     per source, all started together);
   2. K1 (the true-FP64 residual) against its plain PyTorch version at the
      main path's shapes and a few ragged ones, within 1e-15·‖A‖_F·‖x‖, and
      the median time of each and of torch.addmv at complex128;
@@ -27,7 +30,24 @@ Phases, each printing its own lines:
   6. maus_tpu_torch.eig of A = (G₁ + iG₂)/√N at 4096², complex64, 32
      candidates, 16 targets, tol 1e-8: ≥ 16 distinct pairs, the best 16 each
      at ≤ 1e-8 by an independent complex128 residual and pairwise distinct,
-     with K2's launch count; one first run, then one timed warm run.
+     with the launch counts of K2, P3, P4 and K3; one first run, then one
+     timed warm run;
+  7. K3 (the complex GEMM) against its plain version at 4096³, at the
+     blocked LU's first trailing update at (8, 2048) and at ragged shapes,
+     within 4·K·ε·max|a|·max|b|, with the times of the kernel, the plain
+     version and torch.matmul (torch.baddbmm for the update);
+  8. P3/P4 (the batched LU) against the plain version: shifted Gram systems
+     of the SVD operand at (8, 2048), shifted eig matrices at (8, 4096),
+     (16, 256), ragged shapes and complex128, by the normwise backward error
+     ‖P·H − L·U‖_F/‖H‖_F ≤ 10·√N·ε, the normwise backward error of
+     torch.linalg.lu_solve on the kernel's factors, the pivots, and the
+     zero-pivot contract; with the times of the kernels, the plain versions
+     and torch.linalg.lu_factor;
+  9. maus_tpu_torch.svd of A = U·diag(σ)·Vᴴ at 4096×2048 (σ = 0.8^k for
+     k < 16, then logspace(−2, −4)), 32 candidates, 16 targets, tol 1e-6:
+     ≥ 16 distinct triplets, the 16 largest σ within 1e-8 of 0.8^k and at
+     ≤ 1e-6 by an independent complex128 residual, with the launch counts of
+     P3, P4 and K3; one first run, then one timed warm run.
 Then a JSON line with the kernel table, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises, so the script exits
 non-zero and prints no result line; so does a machine without CUDA.
@@ -51,6 +71,15 @@ EIG_N = 4096
 EIG_CANDIDATES = 32
 EIG_TARGETS = 16
 EIG_MAX_ITERATIONS = 100
+SVD_M, SVD_N = 4096, 2048
+SVD_TOP = 16                 # σ = 0.8^k above the logspace(−2, −4) tail
+SVD_CANDIDATES = 32
+SVD_TOL = 1e-6
+SVD_MAX_ITERATIONS = 100
+LU_BATCH = 8                 # the finishers' chunk of per-candidate systems
+# PR 2's eig finisher on the same card type (PERF.md §5): the 4096² eig's
+# finish_s with torch.linalg.lu_factor, first smoke run and final run
+PR2_FINISH_S = (1.880, 2.094)
 # the smallest complex128 N whose carried row leaves K2's shared memory
 # (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES)
 K2_GLOBAL_ROW_N = 10241
@@ -312,6 +341,182 @@ def eig_and_check(maus_tpu_torch, hess_solve, A, label):
                 launches=launches, **rep.timings)
 
 
+def cnormal(gen, shape, dtype, device):
+    """Standard complex normal entries (unit variance per plane) drawn from
+    ``gen`` on the card."""
+    import torch
+
+    rdt = dtype.to_real()
+    return torch.complex(torch.randn(*shape, generator=gen, dtype=rdt, device=device),
+                         torch.randn(*shape, generator=gen, dtype=rdt, device=device))
+
+
+def check_cgemm(cgemm, a, b, label):
+    """K3 against its plain version: max|Δ| ≤ 4·K·ε·max|a|·max|b| (one
+    rounding per FMA along K, c = 4 for the four real products of the
+    complex product). Returns (max|Δ|, bar)."""
+    import torch
+
+    got = cgemm.cgemm(a, b)
+    want = cgemm.cgemm_plain(a, b)
+    torch.cuda.synchronize()
+    eps = torch.finfo(a.real.dtype).eps
+    bar = 4 * a.shape[1] * eps * float(a.abs().max()) * float(b.abs().max())
+    err = float((got - want).abs().max())
+    if not (err <= bar and bool(torch.isfinite(torch.view_as_real(got)).all())):
+        raise AssertionError(f"K3 {label}: max|Δ| {err:.3e} > {bar:.3e}")
+    return err, bar
+
+
+def lu_backward_error(H, lu, piv):
+    """max over the batch of ‖P·H − L·U‖_F/‖H‖_F in complex128, P from the
+    1-based sequential interchanges ``piv``."""
+    import numpy as np
+    import torch
+
+    N = H.shape[-1]
+    eye = torch.eye(N, dtype=torch.complex128, device=H.device)
+    worst = 0.0
+    for b, p in enumerate(piv.cpu().numpy() - 1):
+        perm = np.arange(N)
+        for i, j in enumerate(p):
+            perm[[i, j]] = perm[[j, i]]
+        Hb = H[b].to(torch.complex128)
+        f = lu[b].to(torch.complex128)
+        r = Hb[torch.from_numpy(perm).to(H.device)] - \
+            (torch.tril(f, -1) + eye) @ torch.triu(f)
+        worst = max(worst, float(torch.linalg.matrix_norm(r)
+                                 / torch.linalg.matrix_norm(Hb)))
+        del Hb, f, r
+    return worst
+
+
+def solve_backward_error(H, lu, piv, gen):
+    """max over the batch of the normwise backward error
+    ‖H·x − b‖/(‖H‖_F·‖x‖ + ‖b‖) of torch.linalg.lu_solve on the factors,
+    in complex128, for a random right-hand side."""
+    import torch
+
+    b = cnormal(gen, H.shape[:2], H.dtype, H.device)
+    x = torch.linalg.lu_solve(lu, piv, b[..., None])[..., 0]
+    worst = 0.0
+    for k in range(H.shape[0]):
+        Hk = H[k].to(torch.complex128)
+        xk, bk = x[k].to(torch.complex128), b[k].to(torch.complex128)
+        r = torch.linalg.vector_norm(Hk @ xk - bk)
+        worst = max(worst, float(r / (torch.linalg.matrix_norm(Hk)
+                                      * torch.linalg.vector_norm(xk)
+                                      + torch.linalg.vector_norm(bk))))
+    return worst
+
+
+def check_lu(lu, H, gen, label, c=10.0):
+    """P4 (with P3 and K3 inside) against its plain version on one batch:
+    both normwise backward errors ≤ c·√N·ε, finite factors, and the pivots
+    compared. They agree but for rounding ties: where two candidates' |a|²
+    lie within rounding of each other the two versions may pick different
+    rows, and from that column on their trailing matrices, and so all later
+    pivots, differ; hence the first differing column of each matrix.
+    Returns the numbers."""
+    import torch
+
+    lu_k, piv_k = lu.lu_factor(H)
+    lu_p, piv_p = lu.lu_factor_plain(H)
+    torch.cuda.synchronize()
+    N = H.shape[-1]
+    differ = (piv_k != piv_p).cpu()
+    first = [int(row.nonzero()[0]) if bool(row.any()) else None for row in differ]
+    bar = c * math.sqrt(N) * torch.finfo(H.real.dtype).eps
+    out = dict(berr=lu_backward_error(H, lu_k, piv_k),
+               plain_berr=lu_backward_error(H, lu_p, piv_p),
+               solve_berr=solve_backward_error(H, lu_k, piv_k, gen),
+               piv_mismatch=int(differ.sum()), first_mismatch=first,
+               max_abs_err=float((lu_k - lu_p).abs().max()), bar=bar)
+    if not (out["berr"] <= bar and out["solve_berr"] <= bar and
+            bool(torch.isfinite(torch.view_as_real(lu_k)).all())):
+        raise AssertionError(f"P4 {label}: backward error {out['berr']:.3e}, "
+                             f"solve {out['solve_berr']:.3e} > {bar:.3e}")
+    return out
+
+
+def svd_operand(m, n, top, seed, device):
+    """A = U·diag(σ)·Vᴴ with U (m×n) and V (n×n) Haar (QR of complex
+    Gaussians with the phases of R's diagonal fixed), σ = 0.8^k for k < top
+    and logspace(−2, −4) for the rest: the JAX package's SVD probe operand
+    (benchmarks/spectral_large_probe.py, _svd_operand). Built in complex128
+    on the card from a seeded torch.Generator, so that σ is known to FP64;
+    the solver runs on its complex64 working copy. Returns (A, σ)."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def haar(rows, cols):
+        q, r = torch.linalg.qr(cnormal(g, (rows, cols), torch.complex128, device))
+        d = torch.diagonal(r)
+        return q * (d / d.abs())[None, :]
+
+    U = haar(m, n)
+    V = haar(n, n)
+    sig = torch.cat([0.8 ** torch.arange(top, dtype=torch.float64, device=device),
+                     torch.logspace(-2.0, -4.0, n - top, dtype=torch.float64,
+                                    device=device)])
+    A = (U * sig[None, :]) @ V.mH
+    del U, V
+    return A.contiguous(), sig
+
+
+def svd_and_check(maus_tpu_torch, A, sig, label):
+    """One maus_tpu_torch.svd at the slice settings, held to the contract:
+    ≥ SVD_TOP distinct triplets; the SVD_TOP largest σ within 1e-8 relative
+    of 0.8^k and each at ≤ SVD_TOL by an independent complex128 two-sided
+    residual ‖Av − σu‖ + ‖Aᴴu − σv‖; so is each of the SVD_TOP best by the
+    reported residual. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = maus_tpu_torch.svd(A, tol=SVD_TOL, max_iterations=SVD_MAX_ITERATIONS,
+                             num_candidates=SVD_CANDIDATES,
+                             target_solutions=SVD_TOP, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rep.num_distinct < SVD_TOP:
+        raise AssertionError(f"{label}: {rep.num_distinct} distinct triplets < "
+                             f"{SVD_TOP}")
+
+    def indep(i):
+        s_, u_, v_ = rep.solutions[i]
+        u = torch.from_numpy(np.asarray(u_, np.complex128)).to(A.device)
+        v = torch.from_numpy(np.asarray(v_, np.complex128)).to(A.device)
+        if u.shape != (A.shape[0],) or v.shape != (A.shape[1],) or not bool(
+                torch.isfinite(torch.view_as_real(torch.cat([u, v]))).all()):
+            raise AssertionError(f"{label}: triplet {i} has vectors of shape "
+                                 f"{tuple(u.shape)}, {tuple(v.shape)} or not finite")
+        return float(torch.linalg.vector_norm(A @ v - s_ * u)
+                     + torch.linalg.vector_norm(A.mH @ u - s_ * v))
+
+    top = sorted(range(rep.num_distinct), key=lambda i: -rep.solutions[i][0])[:SVD_TOP]
+    best = list(np.argsort(rep.residuals)[:SVD_TOP])
+    sig_h = sig[:SVD_TOP].cpu().numpy()
+    sig_err = max(abs(rep.solutions[i][0] - sig_h[j]) / sig_h[j]
+                  for j, i in enumerate(top))
+    worst_top = max(indep(i) for i in top)
+    worst_best = max(indep(int(i)) for i in best)
+    if not (sig_err <= 1e-8 and worst_top <= SVD_TOL and worst_best <= SVD_TOL):
+        raise AssertionError(f"{label}: σ off 0.8^k by {sig_err:.3e} (relative), "
+                             f"independent residuals {worst_top:.3e} (top "
+                             f"{SVD_TOP}), {worst_best:.3e} (best {SVD_TOP})")
+    t = rep.timings
+    return dict(wall_s=wall, iterations=rep.iterations,
+                num_distinct=rep.num_distinct, target=rep.target_solutions,
+                converged=rep.converged, sigma_rel_err=sig_err,
+                worst_top=worst_top, worst_best=worst_best,
+                construct_s=wall - t["setup_s"] - t["engine_s"] - t["finish_s"],
+                **t)
+
+
 def main():
     import torch
 
@@ -320,7 +525,16 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import maus_tpu_torch
     from maus_tpu_torch.ops import hessenberg
-    from maus_tpu_torch.ops.kernels import build, hess_solve, residual
+    from maus_tpu_torch.ops.kernels import build, cgemm, hess_solve, lu, residual
+
+    def reset_counts():
+        residual.LAUNCHES = hess_solve.LAUNCHES = cgemm.LAUNCHES = 0
+        lu.LAUNCHES = lu.PANEL_LAUNCHES = 0
+
+    def counts():
+        return dict(K1=residual.LAUNCHES, K2=hess_solve.LAUNCHES,
+                    P3_panel=lu.PANEL_LAUNCHES, P4_blocked=lu.LAUNCHES,
+                    K3=cgemm.LAUNCHES)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -329,7 +543,7 @@ def main():
 
     t0 = time.perf_counter()
     lib_path = build.build(force=True)
-    say(1, f"built K1 and K2 in {time.perf_counter() - t0:.2f} s -> "
+    say(1, f"built {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.2f} s -> "
            f"{os.path.relpath(lib_path)}")
 
     gen = torch.Generator(device=dev)
@@ -364,7 +578,7 @@ def main():
 
     A, b = make_system(HEADLINE_N, COND, SEED, dev)
     torch.cuda.synchronize()
-    residual.LAUNCHES = hess_solve.LAUNCHES = 0
+    reset_counts()
     first = solve_and_check(maus_tpu_torch, residual, A, b, "4096² solve")
     main_path_launches = residual.LAUNCHES
     say(3, f"launches on the linear path: K1 {residual.LAUNCHES}, "
@@ -483,10 +697,13 @@ def main():
     A = eig_operand(EIG_N, SEED, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    residual.LAUNCHES = hess_solve.LAUNCHES = 0
+    reset_counts()
     first = eig_and_check(maus_tpu_torch, hess_solve, A, "4096² eig")
-    eig_launches = hess_solve.LAUNCHES
-    say(6, f"launches on the eig path: K1 {residual.LAUNCHES}, K2 {eig_launches}")
+    eig_counts = counts()
+    eig_launches = eig_counts["K2"]
+    say(6, f"launches on the eig path: {eig_counts}")
+    if eig_counts["P4_blocked"] <= 0:
+        raise AssertionError("the eig finisher never ran the blocked LU (P4)")
     say(6, f"first eig {EIG_N}²: {first}; peak device memory "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     warm = eig_and_check(maus_tpu_torch, hess_solve, A, "4096² eig")
@@ -496,9 +713,207 @@ def main():
            f"{warm['worst_of_best']:.3e} (independent complex128), reported ≤ "
            f"{warm['worst_reported']:.3e}; Hessenberg reduction "
            f"{warm['setup_s']:.3f} s, engine {warm['engine_s']:.3f} s, "
-           f"finisher {warm['finish_s']:.3f} s; warm wall {warm['wall_s']:.3f} s "
-           f"(one run after one first run)")
+           f"finisher {warm['finish_s']:.3f} s (PR 2, torch.linalg.lu_factor: "
+           f"{PR2_FINISH_S[0]:.3f}-{PR2_FINISH_S[1]:.3f} s); warm wall "
+           f"{warm['wall_s']:.3f} s (one run after one first run)")
+    torch.cuda.empty_cache()
+
     del A
+
+    # ---- phase 7: K3 against its plain version -----------------------------
+    for (m, k, n, dtype) in ((1, 1, 1, torch.complex64), (100, 130, 50, torch.complex64),
+                             (8, 128, 128, torch.complex64),
+                             (1000, 777, 513, torch.complex128)):
+        a = cnormal(gen, (m, k), dtype, dev)
+        b = cnormal(gen, (k, n), dtype, dev)
+        err, bar = check_cgemm(cgemm, a, b, f"({m}, {k}, {n})")
+        say(7, f"K3 vs plain (M, K, N) = ({m}, {k}, {n}) {str(dtype)[6:]}: "
+               f"max|Δ| {err:.3e} <= {bar:.3e}")
+    n = HEADLINE_N
+    a = cnormal(gen, (n, n), torch.complex64, dev)
+    b = cnormal(gen, (n, n), torch.complex64, dev)
+    err, bar = check_cgemm(cgemm, a, b, f"{n}³")
+    g_ms = time_ms(lambda: cgemm.cgemm(a, b), reps=10)
+    g_plain = time_ms(lambda: cgemm.cgemm_plain(a, b), reps=10)
+    g_lib = time_ms(lambda: a @ b, reps=10)
+    g_bound, g_by = bound_ms(3 * n * n * 8, 8 * n ** 3, FP32_FLOPS)
+    say(7, f"K3 {n}³ complex64: max|Δ| {err:.3e} <= {bar:.3e}; kernel {g_ms:.3f} ms "
+           f"({8 * n ** 3 / g_ms / 1e9:.1f} TFLOP/s), plain {g_plain:.3f} ms, "
+           f"torch.matmul {g_lib:.3f} ms, bound {g_bound:.3f} ms ({g_by})")
+    del a, b
+    # the blocked LU's first trailing update at (8, 2048): C = X[:, e:, e:],
+    # A = X[:, e:, s:e], B = X[:, s:e, e:] in one buffer, α = −1, β = 1
+    K, n, e = LU_BATCH, SVD_N, lu.NB
+    X = cnormal(gen, (K, n, n), torch.complex64, dev)
+    Xk, Xp = X.clone(), X.clone()
+    cgemm.cgemm_update(Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:], -1.0, 1.0)
+    cgemm.cgemm_update_plain(Xp[:, e:, e:], Xp[:, e:, :e], Xp[:, :e, e:], -1.0, 1.0)
+    torch.cuda.synchronize()
+    eps32 = torch.finfo(torch.float32).eps
+    u_err = float((Xk - Xp).abs().max())
+    u_bar = 4 * e * eps32 * float(X.abs().max()) ** 2 + 2 * eps32 * float(X.abs().max())
+    if not u_err <= u_bar:
+        raise AssertionError(f"K3 trailing update: max|Δ| {u_err:.3e} > {u_bar:.3e}")
+    del Xp
+    u_ms = time_ms(lambda: cgemm.cgemm_update(Xk[:, e:, e:], Xk[:, e:, :e],
+                                              Xk[:, :e, e:], -1.0, 1.0))
+    u_plain = time_ms(lambda: cgemm.cgemm_update_plain(
+        Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:], -1.0, 1.0))
+    u_lib = time_ms(lambda: torch.baddbmm(Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:],
+                                          beta=1, alpha=-1))
+    m_ = n - e
+    u_flops = 8 * K * m_ * m_ * e
+    u_bytes = (K * (2 * m_ * e) + 2 * K * m_ * m_) * 8
+    u_bound, u_by = bound_ms(u_bytes, u_flops, FP32_FLOPS)
+    say(7, f"K3 first trailing update of the ({K}, {n}) LU, (batch, M, N, K) = "
+           f"({K}, {m_}, {m_}, {e}): max|Δ| {u_err:.3e} <= {u_bar:.3e}; kernel "
+           f"{u_ms:.4f} ms, plain {u_plain:.4f} ms, torch.baddbmm {u_lib:.4f} ms, "
+           f"bound {u_bound:.4f} ms ({u_by})")
+    del X, Xk
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: P3/P4 against the plain version --------------------------
+    lu_rows = {}
+    # shifted Gram systems of the SVD operand, as the SVD finisher builds
+    # them: G = AᴴA in complex64 − σ_k² + ψ for the top LU_BATCH σ
+    A_svd, sig = svd_operand(SVD_M, SVD_N, SVD_TOP, SEED, dev)
+    Ac = A_svd.to(torch.complex64)
+    G = Ac.mH @ Ac
+    del Ac
+    psi = 3e-6 * float(torch.linalg.vector_norm(A_svd)) / math.sqrt(SVD_N)
+    Hg = G.expand(LU_BATCH, SVD_N, SVD_N).clone()
+    Hg.diagonal(dim1=-2, dim2=-1).add_(
+        (-(sig[:LU_BATCH] ** 2) + psi).to(torch.complex64)[:, None])
+    del G
+    # shifted eig matrices of the eig operand: A − λ_k I, λ_k drawn as the
+    # engine draws its shifts (centroid 0, RMS spread 1)
+    A_e = eig_operand(EIG_N, SEED, dev)
+    lam = cnormal(gen, (LU_BATCH,), torch.complex64, dev) / math.sqrt(2.0)
+    He = A_e.expand(LU_BATCH, EIG_N, EIG_N).clone()
+    He.diagonal(dim1=-2, dim2=-1).sub_(lam[:, None])
+    del A_e
+    for label, H in ((f"({LU_BATCH}, {SVD_N}) shifted Gram", Hg),
+                     (f"({LU_BATCH}, {EIG_N}) shifted eig", He)):
+        r = check_lu(lu, H, gen, label)
+        N = H.shape[-1]
+        t_k = time_ms(lambda: lu.lu_factor(H), reps=3)
+        t_p = time_ms(lambda: lu.lu_factor_plain(H), reps=2 if N < 4096 else 1)
+        t_l = time_ms(lambda: torch.linalg.lu_factor(H), reps=2)
+        bnd, by = bound_ms(2 * LU_BATCH * N * N * 8, 8 / 3 * LU_BATCH * N ** 3,
+                           FP32_FLOPS)
+        lu_rows[N] = dict(r, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bnd,
+                          bound_by=by)
+        say(8, f"P4 vs plain {label} complex64: backward error kernel "
+               f"{r['berr']:.3e}, plain {r['plain_berr']:.3e}, lu_solve "
+               f"{r['solve_berr']:.3e} (bar {r['bar']:.3e}); pivots differing "
+               f"{r['piv_mismatch']} (first differing column per matrix "
+               f"{r['first_mismatch']}); max|Δ| {r['max_abs_err']:.3e}; kernel "
+               f"{t_k:.2f} ms, plain {t_p:.1f} ms, torch.linalg.lu_factor "
+               f"{t_l:.2f} ms, bound {bnd:.3f} ms ({by})")
+    del Hg
+    # the panel kernel on the first 64 columns of the (8, 4096) batch, the
+    # largest panel the finishers factor; repeated in place for the timing
+    # (each call factors the same 4096 × 64 block once more)
+    N, w = EIG_N, lu.NB
+    pk, pp = He.clone(), He.clone()
+    piv_k = torch.zeros((LU_BATCH, N), dtype=torch.int32, device=dev)
+    piv_p = piv_k.clone()
+    lu.lu_panel(pk, piv_k, 0, w)
+    lu.lu_panel_plain(pp, piv_p, 0, w)
+    torch.cuda.synchronize()
+    p_err = float((pk - pp).abs().max())
+    p_mism = int((piv_k != piv_p).sum())
+    if not (p_err <= 1e-4 * float(He.abs().max()) and p_mism == 0):
+        raise AssertionError(f"P3 panel [0, {w}) of ({LU_BATCH}, {N}): max|Δ| "
+                             f"{p_err:.3e}, pivots differing {p_mism}")
+    del pp
+    p_ms = time_ms(lambda: lu.lu_panel(pk, piv_k, 0, w), reps=5)
+    p_plain = time_ms(lambda: lu.lu_panel_plain(pk, piv_k, 0, w), reps=2)
+    panel = He[:, :, :w].contiguous()
+    p_lib = time_ms(lambda: torch.linalg.lu_factor(panel), reps=5)
+    p_flops = LU_BATCH * sum((N - k - 1) * (8 + 8 * (w - k - 1)) for k in range(w))
+    p_bound, p_by = bound_ms(2 * LU_BATCH * N * w * 8, p_flops, FP32_FLOPS)
+    say(8, f"P3 panel [0, {w}) of ({LU_BATCH}, {N}) complex64: max|Δ| {p_err:.3e}, "
+           f"pivots differing {p_mism}; kernel {p_ms:.3f} ms, plain {p_plain:.1f} ms, "
+           f"torch.linalg.lu_factor of the {N}×{w} panels {p_lib:.3f} ms, bound "
+           f"{p_bound:.4f} ms ({p_by})")
+    del He, pk, panel
+    torch.cuda.empty_cache()
+    # P3's own measured range: the whole unblocked LU (one panel over all N)
+    K, N = 16, 256
+    H = cnormal(gen, (K, N, N), torch.complex64, dev)
+    a, b = H.clone(), H.clone()
+    pa = torch.zeros((K, N), dtype=torch.int32, device=dev)
+    pb = pa.clone()
+    lu.lu_panel(a, pa, 0, N)
+    lu.lu_panel_plain(b, pb, 0, N)
+    torch.cuda.synchronize()
+    p3_berr = lu_backward_error(H, a, pa)
+    p3_bar = 10 * math.sqrt(N) * eps32
+    if not (p3_berr <= p3_bar and int((pa != pb).sum()) == 0):
+        raise AssertionError(f"P3 unblocked ({K}, {N}): backward error "
+                             f"{p3_berr:.3e} > {p3_bar:.3e} or pivots differ")
+
+    def unblocked():
+        w_ = H.clone()
+        lu.lu_panel(w_, pa, 0, N)
+
+    def unblocked_plain():
+        w_ = H.clone()
+        lu.lu_panel_plain(w_, pb, 0, N)
+
+    say(8, f"P3 unblocked ({K}, {N}) complex64 (one panel over all columns): "
+           f"backward error {p3_berr:.3e} (bar {p3_bar:.3e}), max|Δ| vs plain "
+           f"{float((a - b).abs().max()):.3e}; kernel {time_ms(unblocked):.3f} ms, "
+           f"plain {time_ms(unblocked_plain, reps=2):.1f} ms, blocked P4 "
+           f"{time_ms(lambda: lu.lu_factor(H)):.3f} ms, torch.linalg.lu_factor "
+           f"{time_ms(lambda: torch.linalg.lu_factor(H)):.3f} ms")
+    del H, a, b
+    for (K, N, dtype) in ((1, 1, torch.complex64), (5, 129, torch.complex64),
+                          (3, 1000, torch.complex64), (2, 2047, torch.complex64),
+                          (2, 512, torch.complex128)):
+        H = cnormal(gen, (K, N, N), dtype, dev)
+        r = check_lu(lu, H, gen, f"({K}, {N}) {dtype}")
+        say(8, f"P4 vs plain ({K}, {N}) {str(dtype)[6:]}: backward error kernel "
+               f"{r['berr']:.3e}, plain {r['plain_berr']:.3e}, lu_solve "
+               f"{r['solve_berr']:.3e} (bar {r['bar']:.3e}); pivots differing "
+               f"{r['piv_mismatch']}; max|Δ| {r['max_abs_err']:.3e}")
+        del H
+    Hz = torch.zeros((2, 5, 5), dtype=torch.complex64, device=dev)
+    Hz[:, 0, 1] = 1.0
+    lz, pz = lu.lu_factor(Hz)
+    xz = torch.linalg.lu_solve(lz, pz, torch.ones((2, 5, 1), dtype=Hz.dtype, device=dev))
+    if bool(torch.isfinite(torch.view_as_real(xz)).all(dim=-1).all(dim=(1, 2)).any()):
+        raise AssertionError("P4: an exactly singular H gave a finite solve")
+    say(8, "P4 zero-pivot contract: the solve against an exactly singular H "
+           "is non-finite")
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: maus_tpu_torch.svd on the card ---------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = svd_and_check(maus_tpu_torch, A_svd, sig, f"{SVD_M}×{SVD_N} svd")
+    svd_counts = counts()
+    say(9, f"launches on the SVD path: {svd_counts}")
+    for name in ("P3_panel", "P4_blocked", "K3"):
+        if svd_counts[name] <= 0:
+            raise AssertionError(f"the SVD path launched {name} {svd_counts[name]} "
+                                 f"times")
+    say(9, f"first svd {SVD_M}×{SVD_N}: {first}; peak device memory "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    warm = svd_and_check(maus_tpu_torch, A_svd, sig, f"{SVD_M}×{SVD_N} svd")
+    say(9, f"{SVD_M}×{SVD_N} svd: {warm['num_distinct']} distinct triplets "
+           f"(target {warm['target']}, converged {warm['converged']}) in "
+           f"{warm['iterations']} iterations; top {SVD_TOP} σ within "
+           f"{warm['sigma_rel_err']:.3e} of 0.8^k, at ≤ {warm['worst_top']:.3e} "
+           f"(independent complex128), best {SVD_TOP} at ≤ {warm['worst_best']:.3e}; "
+           f"construct {warm['construct_s']:.3f} s, setup {warm['setup_s']:.3f} s, "
+           f"engine {warm['engine_s']:.3f} s, finisher {warm['finish_s']:.3f} s; "
+           f"warm wall {warm['wall_s']:.3f} s (one run after one first run); peak "
+           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del A_svd
 
     k64 = kernel_rows[torch.complex64]
     k1_bound, k1_by = bound_ms(k64["nbytes"], k64["flops"], FP64_FLOPS)
@@ -514,7 +929,26 @@ def main():
         "replaces": "maus_tpu/ops/pallas/hess_solve.py:158",
         "launches": eig_launches, "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-        "bound_by": k2_by, "library_ms": k2_lib_ms}]}), flush=True)
+        "bound_by": k2_by, "library_ms": k2_lib_ms}, {
+        "name": "cgemm", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm.cu",
+        "replaces": "maus_tpu/ops/pallas/cgemm.py:57",
+        "launches": svd_counts["K3"], "max_abs_err": u_err, "ms": u_ms,
+        "plain_ms": u_plain, "bound_ms": u_bound, "bound_by": u_by,
+        "library_ms": u_lib}, {
+        "name": "lu_panel", "route": "cuda", "source": "maus_tpu_torch/csrc/lu.cu",
+        "replaces": "benchmarks/parked/pallas_lu.py:103",
+        "launches": svd_counts["P3_panel"], "max_abs_err": p_err, "ms": p_ms,
+        "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
+        "library_ms": p_lib}, {
+        "name": "lu_factor_blocked", "route": "cuda",
+        "source": "maus_tpu_torch/csrc/lu.cu",
+        "replaces": "benchmarks/parked/pallas_lu_blocked.py:169",
+        "launches": svd_counts["P4_blocked"],
+        "max_abs_err": lu_rows[SVD_N]["max_abs_err"], "ms": lu_rows[SVD_N]["ms"],
+        "plain_ms": lu_rows[SVD_N]["plain_ms"],
+        "bound_ms": lu_rows[SVD_N]["bound_ms"],
+        "bound_by": lu_rows[SVD_N]["bound_by"],
+        "library_ms": lu_rows[SVD_N]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,8 +20,7 @@ import torch
 
 class ProblemType(enum.IntEnum):
     """Problem classes (reference ``ProblemType``). The port runs
-    SOLVE_LINEAR_SYSTEM and non-Hermitian EIGENVALUE; SVD is declared so that
-    codes agree with the JAX package."""
+    SOLVE_LINEAR_SYSTEM, non-Hermitian EIGENVALUE and SVD."""
 
     EIGENVALUE = 0
     SOLVE_LINEAR_SYSTEM = 1
@@ -60,12 +59,18 @@ def as_torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
+# effective-rank cut σ/σ_max: module-level so that the host-side rank probe
+# (solver/diagnose.py, which runs before a config exists) and the config
+# default cannot drift apart
+RANK_REL_CUT = 1e-4
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Static solver configuration; defaults as in the JAX package.
 
-    Only the fields the linear and non-Hermitian eig paths read are here;
-    the Hermitian-eig and SVD fields arrive with their slices. Not carried
+    Only the fields the linear, non-Hermitian eig and SVD paths read are
+    here; the Hermitian-eig fields arrive with their slice. Not carried
     over: ``host_refactor``, which
     exists only for XLA:TPU's 16 MB scoped-VMEM cap on conditional branches
     (the port refactorizes in ordinary Python control flow at any size).
@@ -93,6 +98,11 @@ class SolverConfig:
     # distinct-solution similarity thresholds (eig)
     vector_similarity_tol: float = 0.999
     lambda_similarity_tol: float = 1e-5
+    sigma_similarity_abs: float = 1e-6
+    sigma_similarity_rel: float = 1e-4
+    # σ/σ_max below this counts as outside the effective rank (its own knob:
+    # the duplicate-σ tolerance must not move rank detection)
+    rank_rel_cut: float = RANK_REL_CUT
     # numerics
     dtype: Any = torch.complex64     # working dtype: complex64 or complex128
     convergence_floor: float = 0.0   # dtype precision floor of the in-loop
@@ -110,6 +120,10 @@ class SolverConfig:
                                      # and run every shifted solve as an O(N²)
                                      # Givens QR on (H − λI), kernel K2;
                                      # otherwise one LU per candidate per step
+    orthogonalize: bool = True       # SVD: run the population as one block
+                                     # (subspace iteration with a Rayleigh–Ritz
+                                     # rotation); otherwise per-candidate
+                                     # alternating power iteration
     target_num_solutions: Optional[int] = None
     stall_limit: int = 10            # stop when the best residual has not
                                      # improved for this many iterations
@@ -132,12 +146,16 @@ class Population:
 
     ``keys`` is a (K, 2) int64 tensor: a per-slot seed and a per-slot
     counter, which together seed the ``torch.Generator`` a slot draws from
-    (``core/rng.py``). ``lam`` holds λ for eigenproblems and zeros for linear
-    systems; the SVD left vector ``u`` arrives with its slice.
+    (``core/rng.py``). ``v`` is x for a linear system, the eigenvector, or
+    the right singular vector; ``u`` is the SVD left vector (``None`` for
+    the other problem types); ``lam`` holds λ (eig), σ (SVD, real part) or
+    zeros (linear).
     """
 
-    v: torch.Tensor              # (K, N) complex — the iterate x, or eigenvector
-    lam: torch.Tensor            # (K,) complex — eigenvalue (eig), 0 (linear)
+    v: torch.Tensor              # (K, N) complex — x, eigenvector, or right
+                                 # singular vector
+    u: Optional[torch.Tensor]    # (K, M) complex — left singular vector (SVD)
+    lam: torch.Tensor            # (K,) complex — λ (eig), σ (SVD), 0 (linear)
     weight: torch.Tensor         # (K,) real
     alpha: torch.Tensor          # (K,) real — local step size
     stuck: torch.Tensor          # (K,) int32
@@ -169,7 +187,10 @@ class StrategyState:
     num_distinct: torch.Tensor       # i32
     frustration: torch.Tensor        # f32 — population-level Ψ escalation rung
     pref_failures: torch.Tensor      # f32 — drives direct↔GMRES failover
-    target_dynamic: torch.Tensor     # i32
+    target_dynamic: torch.Tensor     # i32 — SVD: the effective-rank target,
+                                     # re-derived every iteration from the
+                                     # converged σ spectrum; otherwise the
+                                     # static target
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +205,7 @@ class ProblemKnowledge:
     density: float = 1.0
     cond_estimate: float = 1.0
     is_singular: bool = False
+    effective_rank: Optional[int] = None   # SVD: from the host rank probe
 
     @property
     def stability(self) -> StabilityState:
@@ -197,14 +219,17 @@ class ProblemKnowledge:
 def default_target_solutions(cfg: SolverConfig, knowledge: ProblemKnowledge) -> int:
     """How many distinct solutions the run is trying to find unless the
     config says otherwise: one for a linear system, N eigenpairs for an
-    eigenproblem."""
+    eigenproblem, the effective rank (else min(M, N)) for an SVD."""
     if cfg.target_num_solutions is not None:
         return int(cfg.target_num_solutions)
+    m = int(knowledge.shape[0])
+    n = int(knowledge.shape[1]) if len(knowledge.shape) > 1 else m
     if cfg.problem_type == ProblemType.EIGENVALUE:
-        return int(knowledge.shape[1]) if len(knowledge.shape) > 1 \
-            else int(knowledge.shape[0])
-    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
+        return n
+    if cfg.problem_type == ProblemType.SVD:
+        if knowledge.effective_rank is not None:
+            return int(knowledge.effective_rank)
+        return min(m, n)
     return 1
 
 
@@ -223,6 +248,9 @@ def initial_strategy(cfg: SolverConfig, knowledge: ProblemKnowledge,
     if knowledge.is_singular and \
             cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
         aggression, pref = max(aggression, 20.0), SolverPreference.GMRES
+    if cfg.problem_type == ProblemType.SVD:
+        aggression = max(aggression, 2.0)
+        thresh = max(thresh, 1e-5)
 
     def f32(v):
         return torch.tensor(v, dtype=torch.float32, device=device)

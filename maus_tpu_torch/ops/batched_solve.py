@@ -1,8 +1,11 @@
 """Ψ-regularized direct solves: the shared factorization of the linear path.
 
-Counterpart of ``maus_tpu/ops/batched_solve.py``. QR, Cholesky, LU and the
+Counterpart of ``maus_tpu/ops/batched_solve.py``. QR, Cholesky and the
 triangular solves are library calls (``torch.linalg``), as the JAX package
-leaves them to XLA. Every candidate of a linear system solves the same
+leaves them to XLA. LU factorizations go through the port's own batched LU
+(``ops/kernels/lu.lu_factor``: kernels P3, P4 and K3 on the card), the one
+the JAX package parked as swappable here; ``torch.linalg.lu_solve`` takes
+its factors unchanged. Every candidate of a linear system solves the same
 ``(A + ΨD) x = b``, so one factorization per Ψ level is computed and reused
 across iterations. The eig path's per-candidate shifted solves escalate Ψ
 through :func:`psi_ladder`; :func:`batched_shifted_solve` is its LU form,
@@ -15,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from .kernels.lu import lu_factor
 from .regularize import apply_shift, psi_magnitude, shift_diagonal
 
 
@@ -39,8 +43,8 @@ class LUFactors:
 
 
 def factor(H: torch.Tensor) -> LUFactors:
-    """LU-factorize a (possibly batched) square matrix."""
-    lu, piv = torch.linalg.lu_factor(H)
+    """LU-factorize a square matrix or a (K, N, N) batch."""
+    lu, piv = lu_factor(H)
     return LUFactors(lu, piv)
 
 
@@ -210,7 +214,7 @@ def batched_shifted_solve(A: torch.Tensor, lams: torch.Tensor,
         d = shift_diagonal(N, psi[:, None], A.dtype) - lams[:, None].to(A.dtype)
         H = A.expand(K, N, N).clone()
         H.diagonal(dim1=-2, dim2=-1).add_(d)
-        lu, piv = torch.linalg.lu_factor(H)
-        return torch.linalg.lu_solve(lu, piv, B.unsqueeze(-1)).squeeze(-1)
+        fac = factor(H)
+        return torch.linalg.lu_solve(fac.lu, fac.piv, B.unsqueeze(-1)).squeeze(-1)
 
     return psi_ladder(solve_at, K, max_attempts, device=B.device)

@@ -21,7 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("true_residual.cu", "hess_solve.cu")
+SOURCES = ("true_residual.cu", "hess_solve.cu", "cgemm.cu", "lu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -95,5 +95,16 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            ptr, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_double)
+            for name, args in (
+                    ("maus_cgemm", [ptr] * 3 + [i32] * 5 + [i64] * 6
+                     + [f64] * 4 + [ptr]),
+                    ("maus_lu_panel", [ptr, ptr] + [i32] * 5 + [ptr]),
+                    ("maus_lu_swap", [ptr, ptr] + [i32] * 5 + [ptr]),
+                    ("maus_lu_trsm", [ptr] + [i32] * 5 + [ptr])):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,20 +1,21 @@
-"""User-facing API: :class:`MausSolver`, :func:`solve` and :func:`eig`.
+"""User-facing API: :class:`MausSolver`, :func:`solve`, :func:`eig` and
+:func:`svd`.
 
-Counterpart of the linear and non-Hermitian eig parts of
+Counterpart of the linear, non-Hermitian eig and SVD parts of
 ``maus_tpu/solver/api.py``. Construction stages the operand on the device
 (the card unless the caller passes ``device="cpu"``), diagnoses it and picks
 the working dtype (complex128 on the CPU, complex64 on CUDA — as the JAX
 package uses complex128 only off the accelerator); ``evolve`` runs the
 population engine to the working dtype's floor, then the finishers take the
 distinct solutions to the user's tolerance against the ORIGINAL operand:
-certified refinement for a linear system, the FP64 bordered-Newton finisher
-for eigenpairs.
+certified refinement for a linear system, the FP64 Newton finishers for
+eigenpairs and singular triplets.
 
 Not carried over: the host-refactor driving and the hoisted large-N
 Hessenberg program (TPU workarounds), the TPU-QR halving of the finisher's
 chunk, and ``_stage_operand``'s complex host-crossing workarounds
 (``utils/xfer.py``). The mesh paths, checkpointing, metrics capture,
-``update_problem``, Hermitian eig and SVD wait for later slices.
+``update_problem`` and Hermitian eig wait for later slices.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from ..core.types import (ProblemKnowledge, ProblemType, SolverConfig,
                           default_target_solutions)
 from ..ops.batched_solve import shared_factor_qr
 from ..ops.refine import refine_gmres, refine_split
-from ..ops.refine_eig import refine_eigenpairs
+from ..ops.refine_eig import refine_eigenpairs, refine_svd_triplets
 from ..utils.precision import full_precision
 from . import evolve as evolve_mod
 from . import strategy as strat_mod
@@ -42,8 +43,9 @@ C128 = torch.complex128
 class SolutionReport:
     """Distinct converged solutions plus run diagnostics. Each entry of
     ``solutions`` is ``(x,)`` for a linear system, with ``x`` a complex128
-    numpy vector, and ``(λ, v)`` for an eigenproblem, with λ a Python
-    complex and ``v`` a numpy vector (complex128 once finished). ``timings``
+    numpy vector, ``(λ, v)`` for an eigenproblem, with λ a Python complex
+    and ``v`` a numpy vector (complex128 once finished), and ``(σ, u, v)``
+    for an SVD, with σ a Python float. ``timings``
     holds the host seconds of each phase of ``evolve`` (``setup_s``, the
     shared Hessenberg reduction; ``engine_s``; ``finish_s``), each phase
     ending in a device synchronisation."""
@@ -123,7 +125,7 @@ def _stage_operand(matrix, compute_dtype: torch.dtype, device: torch.device,
         full = torch.from_numpy(A_host).to(device)
     if not _all_finite(full):
         raise ValueError("matrix contains non-finite entries")
-    if full.shape[0] != full.shape[1]:
+    if full.shape[0] != full.shape[1] and problem_type != ProblemType.SVD:
         raise ValueError(f"{problem_type.name} requires a square matrix, "
                          f"got {tuple(full.shape)}")
     A_work = full.to(compute_dtype).contiguous()
@@ -189,8 +191,8 @@ def _final_dedup(cfg: SolverConfig, solutions: list,
     """Deterministic host-side final dedup over the gathered leaders, with a
     hysteresis band (×1.25) around the device's similarity threshold so that
     rounding-level differences cannot move a pair across it. Processed in
-    residual order, best first; eigenpairs by the device's rule (λ distance
-    with the residual band, vector overlap)."""
+    residual order, best first; eigenpairs and triplets by the device's rules
+    (value distance with the residual band, vector overlaps)."""
     BAND = 1.25
     vec_dup = 1.0 - BAND * (1.0 - cfg.vector_similarity_tol)
     order = sorted(range(len(solutions)), key=lambda i: residuals[i])
@@ -199,11 +201,19 @@ def _final_dedup(cfg: SolverConfig, solutions: list,
         sol, res = solutions[i], residuals[i]
         dup = False
         for ks, kr in zip(kept_s, kept_r):
+            rband = 4.0 * (res + kr) if np.isfinite(res + kr) else 0.0
             if cfg.problem_type == ProblemType.EIGENVALUE:
-                rband = 4.0 * (res + kr) if np.isfinite(res + kr) else 0.0
                 (lam, v), (lam2, v2) = sol, ks
                 dup = (abs(lam - lam2) < BAND * (cfg.lambda_similarity_tol
                                                  + abs(lam2) * 1e-6) + rband
+                       and _overlap(v, v2) > vec_dup)
+            elif cfg.problem_type == ProblemType.SVD:
+                (sig, u, v), (sig2, u2, v2) = sol, ks
+                dup = (abs(sig - sig2) < BAND * (cfg.sigma_similarity_abs
+                                                 + abs(sig2)
+                                                 * cfg.sigma_similarity_rel)
+                       + rband
+                       and _overlap(u, u2) > vec_dup
                        and _overlap(v, v2) > vec_dup)
             else:
                 dup = bool(np.linalg.norm(sol[0] - ks[0]) < BAND * 100.0 * cfg.tol)
@@ -216,8 +226,8 @@ def _final_dedup(cfg: SolverConfig, solutions: list,
 
 
 class MausSolver:
-    """Population-based meta-heuristic solver for Ax=b and non-Hermitian
-    Ax=λx (PyTorch port)."""
+    """Population-based meta-heuristic solver for Ax=b, non-Hermitian Ax=λx
+    and the SVD (PyTorch port)."""
 
     # finisher chunk: each candidate factors its own (N, N) shifted system,
     # so bound the chunk's factorization workspace at about 2 GiB
@@ -231,10 +241,6 @@ class MausSolver:
                  knowledge: Optional[ProblemKnowledge] = None,
                  target_solutions: Optional[int] = None, device=None):
         problem_type = ProblemType(problem_type)
-        if problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
-                                ProblemType.EIGENVALUE):
-            raise NotImplementedError(
-                f"{problem_type.name} is not ported to maus_tpu_torch yet")
         linear = problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
         if linear and b_vector is None:
             raise ValueError("SOLVE_LINEAR_SYSTEM requires b_vector")
@@ -250,7 +256,7 @@ class MausSolver:
                 device_full=A_true if A_true is not A_work else None,
                 device_exact=exact)
         m, n = self.knowledge.shape
-        if not linear and self.knowledge.is_hermitian:
+        if problem_type == ProblemType.EIGENVALUE and self.knowledge.is_hermitian:
             raise NotImplementedError("Hermitian eig (shared eigh, deflated "
                                       "Lanczos) is not ported to "
                                       "maus_tpu_torch yet")
@@ -309,6 +315,10 @@ class MausSolver:
             timings["engine_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             pop, strat = carry.pop, carry.strat
+            if cfg.problem_type == ProblemType.SVD:
+                # the run's last view of the effective rank, re-derived from
+                # the converged σ spectrum, supersedes the initial estimate
+                self.target_solutions = int(strat.target_dynamic)
             diag = strat_mod.compute_diagnostics(cfg, pop, strat,
                                                  self.target_solutions)
             leader = diag.distinct_leader.cpu().numpy()
@@ -326,6 +336,16 @@ class MausSolver:
                     lam_k, v_k, r_k = refined.get(
                         k, (complex(lam[k]), v[k], float(residual[k])))
                     solutions.append((lam_k, v_k))
+                    residuals.append(r_k)
+            elif cfg.problem_type == ProblemType.SVD:
+                sig = pop.lam.real.cpu().numpy()
+                u, v = pop.u.cpu().numpy(), pop.v.cpu().numpy()
+                refined = self._refine_svd(leader_ks, pop, residual) \
+                    if cfg.refine and leader_ks else {}
+                for k in leader_ks:
+                    s_k, u_k, v_k, r_k = refined.get(
+                        k, (float(sig[k]), u[k], v[k], float(residual[k])))
+                    solutions.append((s_k, u_k, v_k))
                     residuals.append(r_k)
             else:
                 self._maybe_reuse_factors(carry)
@@ -414,6 +434,27 @@ class MausSolver:
                 if np.isfinite(res_h[j]) and res_h[j] < best[k][2]:
                     best[k] = (complex(lam_h[j]), V_h[j], float(res_h[j]))
 
+    def _refine_svd(self, ks: list, pop, residual: np.ndarray) -> dict:
+        """Finish the SVD leaders ``ks`` against the original operand in
+        FP64, in chunks. Returns {slot: (σ, u, v, residual)} for the slots
+        whose residual the finisher lowered."""
+        out = {}
+        CH = self._refine_chunk()
+        A64 = self._get_A64()
+        dt = self.config.dtype
+        for i in range(0, len(ks), CH):
+            chunk = ks[i:i + CH]
+            idx = torch.tensor(chunk, device=pop.v.device)
+            sig, U, V, res = refine_svd_triplets(
+                A64, pop.lam[idx].to(dt), pop.u[idx].to(dt), pop.v[idx].to(dt),
+                steps=5)
+            sig_h, U_h, V_h, res_h = (sig.cpu().numpy(), U.cpu().numpy(),
+                                      V.cpu().numpy(), res.cpu().numpy())
+            for j, k in enumerate(chunk):
+                if np.isfinite(res_h[j]) and res_h[j] < residual[k]:
+                    out[k] = (float(sig_h[j]), U_h[j], V_h[j], float(res_h[j]))
+        return out
+
     def _refine_spectral(self, ks: list, lam: torch.Tensor, V: torch.Tensor,
                          residual: np.ndarray) -> dict:
         """Finish the eigenpair leaders ``ks`` against the original operand
@@ -462,6 +503,27 @@ def eig(A, tol: float = 1e-8, max_iterations: int = 200,
     candidates). ``knowledge``: a precomputed :class:`ProblemKnowledge`,
     which skips the diagnosis. A Hermitian A raises NotImplementedError."""
     s = MausSolver(A, ProblemType.EIGENVALUE,
+                   initial_num_candidates=num_candidates,
+                   global_convergence_tol=tol, config=config, seed=seed,
+                   target_solutions=target_solutions, knowledge=knowledge,
+                   device=device)
+    return s.evolve(max_iterations)
+
+
+def svd(A, tol: float = 1e-6, max_iterations: int = 300,
+        num_candidates: Optional[int] = None, seed: int = 0,
+        config: Optional[SolverConfig] = None,
+        target_solutions: Optional[int] = None,
+        knowledge: Optional[ProblemKnowledge] = None,
+        device=None) -> SolutionReport:
+    """Singular triplets (σ, u, v) of an (M, N) operand A on ``device``
+    (default: the card, as for :func:`solve`). ``target_solutions``: how
+    many distinct triplets to search for (default the diagnosed effective
+    rank, clamped to the number of candidates); the run re-derives the
+    target from the converged σ spectrum and reports its last value.
+    ``knowledge``: a precomputed :class:`ProblemKnowledge`, which skips the
+    diagnosis."""
+    s = MausSolver(A, ProblemType.SVD,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
                    target_solutions=target_solutions, knowledge=knowledge,

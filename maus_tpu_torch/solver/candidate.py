@@ -1,11 +1,10 @@
-"""Batched candidate update steps for linear systems and eigenproblems.
+"""Batched candidate update steps for linear systems, eigenproblems and SVD.
 
 Counterpart of ``maus_tpu/solver/candidate.py`` (``init_population``,
-``_adapt_and_classify``, ``step_linear``, ``step_eigen`` and helpers). One
-call advances all K candidates; solve success or failure, stuckness and
-convergence are masked tensor arithmetic on the
-:class:`~maus_tpu_torch.core.types.Population`. ``step_svd`` waits for its
-slice.
+``_adapt_and_classify``, ``step_linear``, ``step_eigen``, ``step_svd`` and
+helpers). One call advances all K candidates; solve success or failure,
+stuckness and convergence are masked tensor arithmetic on the
+:class:`~maus_tpu_torch.core.types.Population`.
 """
 from __future__ import annotations
 
@@ -25,6 +24,9 @@ from ..ops.regularize import psi_magnitude, shift_diagonal
 # shift until its eigenresidual drops below this fraction of the operand's
 # ‖A‖_F/√N scale, then switches to the Rayleigh quotient (RQI).
 _SHIFT_LOCK_FRAC = 0.1
+
+# independent per-slot draws at one counter (stream 0 is the iterate v)
+_LAM, _U, _RESEED = 1, 2, 3
 
 
 @dataclasses.dataclass
@@ -65,20 +67,24 @@ def init_population(cfg: SolverConfig, seed: int, shape: tuple,
     first two moments: ``lam_center`` = tr(A)/N, ``lam_scale`` =
     √(‖A‖_F²/N − |center|²), which bounds the RMS eigenvalue distance from
     the centroid (the reference's fixed ±2.5 window misses spectra that live
-    elsewhere)."""
-    if cfg.problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
-                                ProblemType.EIGENVALUE):
-        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
-    n = int(shape[1]) if len(shape) > 1 else int(shape[0])
+    elsewhere). An SVD population also draws a unit left vector u of length
+    M per slot and starts at σ = 1."""
+    m = int(shape[0])
+    n = int(shape[1]) if len(shape) > 1 else m
     K = cfg.num_candidates
     keys = rng.make_candidate_keys(seed, K, device)
     v = rng.normal_rows(keys, range(K), n, cfg.dtype, device)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    u = None
     lam = torch.zeros((K,), dtype=cfg.dtype, device=device)
     if cfg.problem_type == ProblemType.EIGENVALUE:
-        lam = rng.normal_scalars(keys, range(K), cfg.dtype, device, stream=1) \
+        lam = rng.normal_scalars(keys, range(K), cfg.dtype, device, stream=_LAM) \
             * torch.as_tensor(lam_scale, device=device).to(cfg.dtype) \
             + torch.as_tensor(lam_center, device=device).to(cfg.dtype)
+    elif cfg.problem_type == ProblemType.SVD:
+        u = rng.normal_rows(keys, range(K), m, cfg.dtype, device, stream=_U)
+        u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+        lam = torch.ones((K,), dtype=cfg.dtype, device=device)
     keys = rng.advance(keys)
     rdt = cfg.real_dtype
 
@@ -87,6 +93,7 @@ def init_population(cfg: SolverConfig, seed: int, shape: tuple,
 
     return Population(
         v=v,
+        u=u,
         lam=lam,
         weight=full(1.0, rdt),
         alpha=full(cfg.alpha_initial, rdt),
@@ -333,6 +340,136 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     regress = _regress_frac(cfg, pop, resid, frozen, floor_scale=scale_eff)
     pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
                               _finite_rows(v_new) & _finite_rows(lam_new[:, None]),
+                              floor_scale=scale_eff)
+    active_f = (~frozen).to(torch.float32)
+    nact = torch.clamp_min(active_f.sum(), 1.0)
+    return pop, StepStats(
+        solve_fail_frac=((~solve_ok).to(torch.float32) * active_f).sum() / nact,
+        regress_frac=regress)
+
+
+def _align(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Rows of ``new`` rotated in phase toward the rows of ``old``."""
+    ph = torch.sum(new.conj() * old, dim=-1)
+    ph = torch.where(ph.abs() > 1e-12, ph / ph.abs(), torch.ones_like(ph))
+    return new * ph[:, None]
+
+
+def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
+             strat: StrategyState) -> tuple[Population, StepStats]:
+    """One SVD population step for an (M, N) operand A.
+
+    ``cfg.orthogonalize`` (the default) runs the population as one block: a
+    round of subspace iteration with a Rayleigh–Ritz rotation (two tall QRs
+    and one small SVD), after which every active slot takes a damped step
+    toward its slot-rank Ritz triplet and every converged slot toward the
+    Ritz triplet it overlaps most (a slot-rank assignment would teleport it
+    when two clustered Ritz values swap order). Otherwise each candidate runs
+    the reference's alternating power iteration on its own. A candidate whose
+    direction A annihilates (σ < 1e-8·‖A‖_F/√min(M, N)) has found a null
+    triplet and is judged by ‖Av‖ alone. Converged candidates keep polishing
+    their data (status frozen), except null triplets, whose data freezes."""
+    conv = pop.status == CandidateStatus.CONVERGED
+    rdt = cfg.real_dtype
+    tiny = torch.finfo(rdt).tiny
+
+    if cfg.orthogonalize:
+        K, N = pop.v.shape
+        M = pop.u.shape[1]
+        r = min(K, M, N)
+        # reseed non-finite or collapsed directions (a slot draws only then)
+        reseeded = ~_finite_rows(pop.v) | \
+            (torch.linalg.vector_norm(pop.v, dim=-1) < 1e-12)
+        V = pop.v
+        rows = torch.nonzero(reseeded).flatten().tolist()
+        if rows:
+            V = V.clone()
+            V[rows] = rng.normal_rows(pop.keys, rows, N, cfg.dtype, A.device,
+                                      stream=_RESEED)
+        pop = dataclasses.replace(pop, keys=rng.advance(pop.keys))
+
+        # one block round: span{A·V} → Qu; project; QR; small SVD → Ritz
+        Qu, _ = torch.linalg.qr((V @ A.T).T)                    # (M, r)
+        Z = Qu.mH @ A                                           # (r, N)
+        Qv, Rz = torch.linalg.qr(Z.mH)                          # (N, r), (r, r)
+        Us, _, Vsh = torch.linalg.svd(Rz.mH)
+        U_ritz = Qu @ Us                                        # (M, r)
+        V_ritz = Qv @ Vsh.mH                                    # (N, r)
+
+        slot_idx = torch.arange(K, device=A.device) % r
+        ovl = (V.conj() @ V_ritz).abs()                         # (K, r)
+        idx = torch.where(conv, torch.argmax(ovl, dim=-1), slot_idx)
+        v_ritz = V_ritz.T[idx]
+        u_ritz = U_ritz.T[idx]
+
+        # damped step toward the Ritz triplet, α adapted per candidate
+        alpha_c = pop.alpha.to(cfg.dtype)[:, None]
+        v_mix = (1.0 - alpha_c) * V + alpha_c * _align(v_ritz, V)
+        v_new = v_mix / torch.clamp_min(
+            torch.linalg.vector_norm(v_mix, dim=-1, keepdim=True), tiny)
+        u_mix = (1.0 - alpha_c) * pop.u + alpha_c * _align(u_ritz, pop.u)
+        u_new = u_mix / torch.clamp_min(
+            torch.linalg.vector_norm(u_mix, dim=-1, keepdim=True), tiny)
+        # σ of the mixed triplet: the phase-absorbed Rayleigh quotient uᴴAv
+        Avm = v_new @ A.T                                       # (K, M)
+        rq = torch.sum(u_new.conj() * Avm, dim=-1)
+        rq_ph = torch.where(rq.abs() > 1e-30, rq / rq.abs(), torch.ones_like(rq))
+        u_new = u_new * rq_ph[:, None]          # uᴴAv real ≥ 0 ⇒ σ = |rq|
+        sigma = rq.abs().to(rdt)
+        s_u = torch.linalg.vector_norm(Avm, dim=-1).to(rdt)
+        solve_ok = _finite_rows(u_new) & _finite_rows(v_new)
+    else:
+        # the reference's per-candidate alternating power iteration;
+        # (Aᴴu)[n] = Σ_m conj(A[m, n]) u[m], a product with conj(A)
+        Av = pop.v @ A.T                                        # (K, M)
+        s_u = torch.linalg.vector_norm(Av, dim=-1)
+        u_new = Av / torch.clamp_min(s_u, tiny)[:, None]
+        AHu = u_new @ A.conj()                                  # (K, N)
+        s_v = torch.linalg.vector_norm(AHu, dim=-1)
+        v_new = AHu / torch.clamp_min(s_v, tiny)[:, None]
+        sigma = torch.maximum(s_u, s_v).to(rdt)
+        solve_ok = _finite_rows(u_new) & _finite_rows(v_new) & (s_u > 1e-30)
+        reseeded = torch.zeros_like(solve_ok)
+
+    # zero-singular-value detection, relative to the operand's scale
+    a_scale = (torch.linalg.vector_norm(A) / torch.sqrt(torch.tensor(
+        float(min(A.shape)), dtype=A.real.dtype, device=A.device))).to(rdt)
+    zero_sv = s_u < 1e-8 * torch.clamp_min(a_scale, tiny)
+    sigma = torch.where(zero_sv, torch.zeros_like(sigma), sigma)
+
+    # two-sided residual ‖Av − σu‖ + ‖Aᴴu − σv‖; for a null vector ‖Av‖
+    # alone (u is arbitrary for σ = 0)
+    sig_c = sigma[:, None].to(cfg.dtype)
+    r1 = torch.linalg.vector_norm(v_new @ A.T - sig_c * u_new, dim=-1)
+    r2 = torch.linalg.vector_norm(u_new @ A.conj() - sig_c * v_new, dim=-1)
+    resid = torch.where(zero_sv, r1.to(rdt), (r1 + r2).to(rdt))
+    solve_ok = solve_ok | (zero_sv & _finite_rows(v_new))
+
+    retired = pop.status == CandidateStatus.RETIRED
+    frozen = conv | retired
+    null_conv = conv & (pop.lam.abs() == 0.0)
+    keep = retired | ~solve_ok | null_conv
+    # an SVD "attempt" is a failed or collapsed step: psi_level counts them
+    failed_step = ~frozen & (reseeded | ~solve_ok)
+    pop = dataclasses.replace(
+        pop, v=torch.where(keep[:, None], pop.v, v_new),
+        u=torch.where(keep[:, None], pop.u, u_new),
+        lam=torch.where(keep, pop.lam, sigma.to(cfg.dtype)),
+        psi_level=pop.psi_level + failed_step.to(torch.int32))
+    # acceptance/regress scale: max(‖A‖_F/√min(M, N), max σ); every σ =
+    # |uᴴAv| of unit vectors lower-bounds ‖A‖₂, and the Frobenius scale
+    # understates the residual units of a low-rank spectrum
+    lam_abs = pop.lam.abs()
+    scale_eff = torch.maximum(
+        a_scale, torch.max(torch.where(torch.isfinite(lam_abs), lam_abs,
+                                       torch.zeros_like(lam_abs))).to(rdt))
+    regress = _regress_frac(cfg, pop, resid, frozen, floor_scale=scale_eff)
+    # polished converged candidates refresh their residual in place
+    pop = dataclasses.replace(
+        pop, residual=torch.where(conv & solve_ok & ~null_conv, resid,
+                                  pop.residual))
+    pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
+                              _finite_rows(v_new) & _finite_rows(u_new),
                               floor_scale=scale_eff)
     active_f = (~frozen).to(torch.float32)
     nact = torch.clamp_min(active_f.sum(), 1.0)

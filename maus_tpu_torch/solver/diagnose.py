@@ -3,7 +3,8 @@
 Counterpart of ``maus_tpu/solver/diagnose.py``: density, Hermitian and
 complex-symmetric structure, positive definiteness, and a condition estimate
 (exact on the host for small operands, an on-device power / inverse-power
-probe otherwise). The results are plain Python values.
+probe otherwise), and for an SVD the effective rank from a singular-value
+sketch. The results are plain Python values.
 
 Not carried over: the probe's TPU fallbacks (exact-slicing bf16 matvecs, and
 complex64 IR residuals past the ladder limit with their widened gate) — the
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.types import ProblemKnowledge, ProblemType
+from ..core.types import RANK_REL_CUT, ProblemKnowledge, ProblemType
 
 
 def _to_dense_numpy(A) -> np.ndarray:
@@ -175,6 +176,37 @@ def _structure_probe(Ad: torch.Tensor):
     return dh, ds, nnz
 
 
+def _svd_probe_dev(Ad: torch.Tensor) -> np.ndarray:
+    """Descending singular-value sketch computed on the device: exact for
+    min(M, N) ≤ 512, else a randomized range finder (64 Gaussian columns,
+    seeded) and the SVD of the projected operand, which sees the top ~64
+    σ's."""
+    m, n = Ad.shape
+    k = min(m, n)
+    if k <= 512:
+        s = torch.linalg.svdvals(Ad)
+    else:
+        g = torch.Generator(device=Ad.device)
+        g.manual_seed(1)
+        G = torch.randn(n, min(64, k), generator=g, dtype=torch.float32,
+                        device=Ad.device).to(Ad.dtype)
+        Q, _ = torch.linalg.qr(Ad @ G)
+        s = torch.linalg.svdvals(Q.mH @ Ad)
+    return s.to(torch.float32).cpu().numpy().astype(np.float64)
+
+
+def _svd_probe_host(Ad: np.ndarray) -> np.ndarray:
+    """The host counterpart of :func:`_svd_probe_dev` (numpy's generator,
+    seed 1, as in the JAX package)."""
+    m, n = Ad.shape
+    k = min(m, n)
+    if k <= 512:
+        return np.linalg.svd(Ad, compute_uv=False)
+    rng_ = np.random.default_rng(1)
+    Q = np.linalg.qr(Ad @ rng_.standard_normal((n, min(64, k))))[0]
+    return np.linalg.svd(Q.conj().T @ Ad, compute_uv=False)
+
+
 def _chol_ok_dev(Ad: torch.Tensor) -> bool:
     _, info = torch.linalg.cholesky_ex(Ad)
     return int(info) == 0
@@ -208,9 +240,11 @@ def diagnose(A, problem_type: ProblemType,
              device_operand: torch.Tensor = None,
              device_full: torch.Tensor = None,
              device_exact: bool = False) -> ProblemKnowledge:
-    """Classify a square operand (reference ``_diagnose_matrix_initial``).
-    Linear systems and eigenproblems are diagnosed alike; the JAX package
-    differs only for SVD (its rank probe), which is not ported.
+    """Classify the operand (reference ``_diagnose_matrix_initial``). Linear
+    systems and eigenproblems need a square operand and are diagnosed alike;
+    an SVD operand may be rectangular, keeps the structure flags False off
+    the square, and adds the effective rank: singular values above
+    ``RANK_REL_CUT``·σ_max of a sketch (exact for min(M, N) ≤ 512).
 
     ``A``: the host operand, or ``None`` when the operand exists only on the
     device (a tensor input). ``device_operand``: the working-dtype copy on
@@ -220,9 +254,6 @@ def diagnose(A, problem_type: ProblemType,
     measured on the exact data. ``device_exact``: the working copy IS the
     user's exact data (float32/complex64 input)."""
     problem_type = ProblemType(problem_type)
-    if problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
-                            ProblemType.EIGENVALUE):
-        raise NotImplementedError(f"{problem_type.name} is not ported")
     if A is None:
         if device_operand is None:
             raise ValueError("diagnose needs either a host operand or "
@@ -239,13 +270,17 @@ def diagnose(A, problem_type: ProblemType,
         if Ad.ndim != 2:
             raise ValueError(f"expected a 2-D operand, got shape {Ad.shape}")
         m, n = Ad.shape
-    if m != n:
+    if m != n and problem_type != ProblemType.SVD:
         raise ValueError(f"{problem_type.name} requires a square matrix, "
                          f"got {(m, n)}")
     big = m * n > 10_000_000
     # (is_hermitian, is_complex_symmetric, is_positive_definite)
     flags = (False, False, False)
-    if device_full is not None:
+    if m != n:
+        # rectangular (SVD): density only, structure is not meaningful
+        nnz = int(torch.count_nonzero(device_operand.abs() > 1e-12)) \
+            if Ad is None else int(np.count_nonzero(np.abs(Ad) > 1e-12))
+    elif device_full is not None:
         nnz, flags = _classify_device(device_full, device_operand)
     elif device_operand is not None and (device_exact or not big):
         if device_exact or Ad is None:
@@ -266,11 +301,26 @@ def diagnose(A, problem_type: ProblemType,
     density = nnz / max(1, m * n)
     is_sparse = was_sparse or density < sparse_density_threshold
 
-    if device_operand is not None and (max(m, n) > 512 or Ad is None):
+    sketch = None
+    if device_operand is not None and m == n and (max(m, n) > 512 or Ad is None):
         cond = estimate_cond_device(device_operand)
+    elif Ad is None:
+        # rectangular device operand: σ ratio of the sketch, a lower bound on
+        # κ above min(M, N) = 512 (only an SVD's initial Ψ aggression reads it)
+        sketch = _svd_probe_dev(device_operand)
+        cond = float(sketch[0] / sketch[-1]) if sketch[-1] > 0 else np.inf
     else:
         cond = estimate_cond(Ad)
     is_singular = (not np.isfinite(cond)) or cond > 1e15
+
+    effective_rank = None
+    if problem_type == ProblemType.SVD:
+        if sketch is None:
+            sketch = _svd_probe_dev(device_operand) if Ad is None \
+                else _svd_probe_host(Ad)
+        smax = sketch[0] if len(sketch) else 1.0
+        effective_rank = int(np.sum(sketch / max(smax, 1e-300) > RANK_REL_CUT)) \
+            or 1
 
     return ProblemKnowledge(
         shape=(m, n), is_hermitian=is_hermitian,
@@ -278,4 +328,4 @@ def diagnose(A, problem_type: ProblemType,
         is_positive_definite=is_positive_definite,
         is_sparse_input=is_sparse, density=float(density),
         cond_estimate=float(cond) if np.isfinite(cond) else float("inf"),
-        is_singular=bool(is_singular))
+        is_singular=bool(is_singular), effective_rank=effective_rank)

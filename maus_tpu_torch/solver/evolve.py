@@ -1,4 +1,4 @@
-"""The evolution loop for linear systems and non-Hermitian eigenproblems.
+"""The evolution loop for linear systems, non-Hermitian eigenproblems and SVD.
 
 Counterpart of ``maus_tpu/solver/evolve.py`` (``_effective_psi``,
 ``make_iteration``, ``init_carry``, ``_use_hessenberg``, ``_setup_caches``,
@@ -9,12 +9,14 @@ Per-iteration order is the reference's: diagnostics → strategy adjustment →
 candidate step → population management. The linear path carries its shared
 factorization across iterations and rebuilds it only when the strategy's Ψ
 rung changes; the eig path carries no factorization and builds the shared
-Hessenberg form once per evolve.
+Hessenberg form once per evolve; the SVD step needs neither (its block round
+is matrix products, two thin QRs and a small SVD).
 
 Not carried over: the host-refactor handoff and ``refactor_psi`` (an XLA:TPU
 scoped-VMEM workaround), the hoisted large-N Hessenberg program (a TPU fault
 workaround) and the mesh branches (a later slice). The Hermitian eig paths
-(shared eigh, deflated Lanczos) are slice 3: a Hermitian operand raises.
+(shared eigh, deflated Lanczos) are a later slice: a Hermitian operand
+raises.
 """
 from __future__ import annotations
 
@@ -73,8 +75,12 @@ def _refactor(knowledge: ProblemKnowledge, A: torch.Tensor, psi):
 def _spectral_moments(A: torch.Tensor):
     """(center, spread) of the spectrum: tr(A)/N, and
     √(‖A‖_F²/N − |center|²) in A's real dtype, which bounds the RMS
-    eigenvalue distance from the centroid."""
+    eigenvalue distance from the centroid. A rectangular operand (SVD) has
+    no spectrum: (0, ‖A‖_F/√N)."""
     n = A.shape[-1]
+    if A.shape[0] != n:
+        return torch.zeros((), dtype=A.dtype, device=A.device), \
+            torch.linalg.vector_norm(A) / n ** 0.5
     center = (torch.trace(A) / n).to(A.dtype)
     spread = torch.sqrt(torch.clamp_min(
         torch.linalg.vector_norm(A) ** 2 / n - center.abs() ** 2, 1e-12))
@@ -85,9 +91,6 @@ def _check_ported(cfg: SolverConfig, knowledge: ProblemKnowledge) -> None:
     if cfg.problem_type == ProblemType.EIGENVALUE and knowledge.is_hermitian:
         raise NotImplementedError("Hermitian eig (shared eigh, deflated "
                                   "Lanczos) is not ported to maus_tpu_torch yet")
-    if cfg.problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
-                                ProblemType.EIGENVALUE):
-        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
 
 
 def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
@@ -113,9 +116,11 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
             if bool(psi_eff != carry.psi_cached):
                 fac = _refactor(knowledge, A, psi_eff)
             pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat)
-        else:
+        elif cfg.problem_type == ProblemType.EIGENVALUE:
             pop, stats = cand.step_eigen(cfg, A, pop, strat,
                                          hess_cache=hess_cache)
+        else:
+            pop, stats = cand.step_svd(cfg, A, pop, strat)
         pop = popmgmt.manage(cfg, pop, strat, diag, target_solutions,
                              lam_scale=lam_spread, lam_center=lam_center)
 
@@ -199,8 +204,12 @@ def _stop_condition(cfg: SolverConfig, target_solutions: int,
                     carry: EvolveCarry) -> torch.Tensor:
     """Done ⇔ the target number of distinct converged solutions exists, or
     the best residual has not improved for ``cfg.stall_limit`` iterations
-    (refinement takes over from there)."""
-    return (carry.strat.num_distinct >= target_solutions) | \
+    (refinement takes over from there). An SVD run compares against its
+    dynamic target (``strat.target_dynamic``), re-estimated every iteration
+    from the converged σ spectrum."""
+    target = carry.strat.target_dynamic \
+        if cfg.problem_type == ProblemType.SVD else target_solutions
+    return (carry.strat.num_distinct >= target) | \
         (carry.stall_count >= cfg.stall_limit)
 
 

@@ -1,12 +1,13 @@
 """Population management — retire / prune / respawn as masked slot reuse.
 
-Counterpart of ``maus_tpu/solver/population.py`` for linear systems and
-eigenproblems: converged duplicates and pruned candidates flip to RETIRED, and
-respawning re-initializes RETIRED slots in place. A respawned linear slot
-takes a fresh random iterate. A respawned eig slot either warm-starts near a
-claimed eigenpair (when the landscape is calm) or explores: a fresh shift
-pushed away from the claimed eigenvalues and a fresh vector deflated once
-against the claimed eigenvectors.
+Counterpart of ``maus_tpu/solver/population.py``: converged duplicates and
+pruned candidates flip to RETIRED, and respawning re-initializes RETIRED
+slots in place. A respawned linear slot takes a fresh random iterate; an SVD
+slot fresh random unit vectors v and u and σ = 1, its spawn budget counted
+against the dynamic effective-rank target. A respawned eig slot either
+warm-starts near a claimed eigenpair (when the landscape is calm) or
+explores: a fresh shift pushed away from the claimed eigenvalues and a
+fresh vector deflated once against the claimed eigenvectors.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .strategy import Diagnostics
 
 # independent per-slot draws of one respawn (the first, stream 0, is the
 # fresh vector)
-_PICK, _NOISE_V, _NOISE_LAM, _FRESH_LAM, _BUMP = 1, 2, 3, 4, 5
+_PICK, _NOISE_V, _NOISE_LAM, _FRESH_LAM, _BUMP, _FRESH_U = 1, 2, 3, 4, 5, 6
 
 
 def _eig_respawn(cfg: SolverConfig, pop: Population, diag: Diagnostics,
@@ -82,9 +83,6 @@ def _eig_respawn(cfg: SolverConfig, pop: Population, diag: Diagnostics,
 def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
            diag: Diagnostics, target_solutions: int,
            lam_scale=1.0, lam_center=0.0) -> Population:
-    if cfg.problem_type not in (ProblemType.SOLVE_LINEAR_SYSTEM,
-                                ProblemType.EIGENVALUE):
-        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
     rdt = cfg.real_dtype
     i8 = torch.int8
 
@@ -103,7 +101,9 @@ def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
     # distinct solution, scaled by the spawn rate
     retired = status == CandidateStatus.RETIRED
     n_retired = torch.sum(retired.to(torch.int32))
-    missing = torch.clamp_min(target_solutions - diag.num_distinct, 0)
+    target = diag.target_dynamic if cfg.problem_type == ProblemType.SVD \
+        else target_solutions
+    missing = torch.clamp_min(target - diag.num_distinct, 0)
     want = torch.clamp_min(n_retired, 0) + missing
     want = (want.to(torch.float32) * strat.spawn_rate).to(torch.int32)
     n_spawn = torch.minimum(want, n_retired)
@@ -113,7 +113,7 @@ def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
     # 4) re-initialize respawned slots; a slot draws only when it respawns
     keys = rng.advance(pop.keys)
     rows = torch.nonzero(respawn).flatten().tolist()
-    v, lam = pop.v, pop.lam
+    v, u, lam = pop.v, pop.u, pop.lam
     if rows:
         fresh = rng.normal_rows(pop.keys, rows, v.shape[1], cfg.dtype, v.device)
         fresh = fresh / torch.linalg.vector_norm(fresh, dim=-1, keepdim=True)
@@ -121,11 +121,18 @@ def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
             fresh, fresh_lam = _eig_respawn(cfg, pop, diag, rows, fresh,
                                             lam_scale, lam_center)
         else:
-            fresh_lam = torch.zeros((len(rows),), dtype=lam.dtype,
-                                    device=lam.device)
+            fresh_lam = torch.full((len(rows),),
+                                   1.0 if cfg.problem_type == ProblemType.SVD
+                                   else 0.0, dtype=lam.dtype, device=lam.device)
         v, lam = v.clone(), lam.clone()
         v[rows] = fresh
         lam[rows] = fresh_lam
+        if u is not None:
+            fresh_u = rng.normal_rows(pop.keys, rows, u.shape[1], cfg.dtype,
+                                      u.device, stream=_FRESH_U)
+            u = u.clone()
+            u[rows] = fresh_u / torch.linalg.vector_norm(fresh_u, dim=-1,
+                                                          keepdim=True)
 
     # spawned α gets the aggression boost, capped at 1 (computed in f32)
     spawn_alpha = torch.clamp_max(cfg.alpha_initial *
@@ -138,7 +145,7 @@ def manage(cfg: SolverConfig, pop: Population, strat: StrategyState,
                                               device=like.device), like)
 
     return dataclasses.replace(
-        pop, v=v, lam=lam,
+        pop, v=v, u=u, lam=lam,
         weight=fill(0.01, pop.weight),
         alpha=torch.where(r, spawn_alpha, pop.alpha),
         stuck=fill(0, pop.stuck),

@@ -4,8 +4,9 @@ Counterpart of ``maus_tpu/solver/strategy.py`` (``compute_diagnostics``,
 ``adjust_strategy``). The distinct-solution registry is one K×K 'same
 solution' matrix; the leader election over it is sequential in priority
 order, so it runs on the host over the K×K boolean matrix (K is the
-population size, 16 or 32 on the headline problems). The SVD similarity rule
-waits for its slice.
+population size, 16 or 32 on the headline problems). An SVD run also
+re-derives its target, the effective rank, from the converged σ spectrum
+every iteration.
 """
 from __future__ import annotations
 
@@ -42,20 +43,57 @@ def _pairwise_same(cfg: SolverConfig, pop: Population) -> torch.Tensor:
       matrix, whose cancellation noise in the working dtype (~ε·‖x‖², 1e7
       for ‖x‖ ≈ 1e7 at κ = 1e6 in complex64) swamps the 1e-12 threshold, so
       identical candidates count as distinct there; here they count as one
-      (a recorded divergence, ROADMAP Queue 3)."""
-    if cfg.problem_type == ProblemType.EIGENVALUE:
+      (a recorded divergence, ROADMAP Queue 3).
+    * SVD: |Δσ| < max(σ_abs, σ·σ_rel) + the same residual band, and both
+      |⟨u_i, u_j⟩| and |⟨v_i, v_j⟩| > 0.999 (overlaps and |Δσ| carry no
+      cancellation, so the JAX package's rule stands as it is)."""
+    if cfg.problem_type in (ProblemType.EIGENVALUE, ProblemType.SVD):
         gram_v = (pop.v.conj() @ pop.v.T).abs()
         r_eff = torch.where(torch.isfinite(pop.residual), pop.residual,
                             torch.zeros_like(pop.residual))
         band = 4.0 * (r_eff[:, None] + r_eff[None, :])
+        if cfg.problem_type == ProblemType.SVD:
+            sig = pop.lam.real
+            dsig = (sig[:, None] - sig[None, :]).abs()
+            tol = torch.clamp_min(sig[None, :] * cfg.sigma_similarity_rel,
+                                  cfg.sigma_similarity_abs) + band
+            gram_u = (pop.u.conj() @ pop.u.T).abs()
+            return (dsig < tol) & (gram_u > cfg.vector_similarity_tol) & \
+                (gram_v > cfg.vector_similarity_tol)
         dlam = (pop.lam[:, None] - pop.lam[None, :]).abs()
         tol = cfg.lambda_similarity_tol + pop.lam.abs()[None, :] * 1e-6 + band
         return (dlam < tol) & (gram_v > cfg.vector_similarity_tol)
-    if cfg.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM:
-        raise NotImplementedError(f"{cfg.problem_type.name} is not ported")
     X = torch.view_as_real(pop.v.resolve_conj()).reshape(pop.v.shape[0], -1)
     d = torch.cdist(X, X, compute_mode="donot_use_mm_for_euclid_dist")
     return d < cfg.tol * 100
+
+
+def _svd_leaders_and_target(cfg: SolverConfig, pop: Population,
+                            strat: StrategyState, conv: torch.Tensor,
+                            leader: torch.Tensor):
+    """(leaders, target) of an SVD population.
+
+    A σ below σ_rel × the largest converged σ is not a distinct triplet,
+    unless it is a null vector (σ = 0). The target is the effective rank
+    read from the converged spectrum: the leaders above rank_rel_cut·σ_max
+    once a σ below that cut has converged (the noise floor is reached), one
+    more than that until then (capped at min(K, M, N)); with no leader yet
+    the previous target stands. When every triplet of an exact low-rank
+    operand is found before a below-cut σ converges, the target stays one
+    above the rank: the JAX package's behaviour, reproduced for parity."""
+    sig = pop.lam.real
+    zero = torch.zeros_like(sig)
+    max_sig = torch.clamp_min(torch.max(torch.where(conv, sig, zero)), 1e-30)
+    tiny = (sig < max_sig * cfg.sigma_similarity_rel) & (sig > 0.0)
+    leader = leader & ~tiny
+    cap = min(pop.capacity, pop.u.shape[1], pop.v.shape[1])
+    smax_l = torch.max(torch.where(leader, sig, zero))
+    cut = smax_l * cfg.rank_rel_cut
+    rank_det = torch.sum(leader & (sig > cut)).to(torch.int32)
+    floor_found = torch.any(conv & (sig < cut))
+    tgt = torch.where(floor_found, rank_det, torch.clamp_max(rank_det + 1, cap))
+    target = torch.where(smax_l > 0.0, tgt, strat.target_dynamic)
+    return leader, target.to(torch.int32)
 
 
 def compute_diagnostics(cfg: SolverConfig, pop: Population, strat: StrategyState,
@@ -78,11 +116,16 @@ def compute_diagnostics(cfg: SolverConfig, pop: Population, strat: StrategyState
     for i in order:
         leader_h[i] = conv_h[i] and not np.any(same_h[i] & leader_h)
     leader = torch.from_numpy(leader_h).to(device)
+    # duplicates are decided before the SVD tiny-σ exclusion: a tiny-σ
+    # leader leaves the count but is not a duplicate to retire
     duplicate = conv & ~leader
-    num_distinct = torch.tensor(int(leader_h.sum()), dtype=torch.int32,
-                                device=device)
-    target_dynamic = torch.tensor(target_solutions, dtype=torch.int32,
-                                  device=device)
+    if cfg.problem_type == ProblemType.SVD:
+        leader, target_dynamic = _svd_leaders_and_target(cfg, pop, strat,
+                                                         conv, leader)
+    else:
+        target_dynamic = torch.tensor(target_solutions, dtype=torch.int32,
+                                      device=device)
+    num_distinct = torch.sum(leader).to(torch.int32)
 
     # averages over non-converged, non-retired candidates; a non-finite
     # residual counts as 100× the current threshold

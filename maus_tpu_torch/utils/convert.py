@@ -59,8 +59,10 @@ def hess_from_numpy(cache, device=None) -> HessCache:
 def carry_from_numpy(leaves, device=None):
     """The port's ``EvolveCarry`` from the JAX package's carry with numpy
     leaves (fields ``pop``, ``strat``, ``fac``, ``psi_cached``,
-    ``iteration``, ``best_residual``, ``stall_count``; ``refactor_psi`` and
-    the SVD vector ``pop.u`` are ignored). An eig carry has ``fac=None``."""
+    ``iteration``, ``best_residual``, ``stall_count``; ``refactor_psi`` is
+    ignored). Every population field is carried, the SVD left vector
+    ``pop.u`` included (``None`` outside SVD), and every strategy field,
+    ``target_dynamic`` included. An eig or SVD carry has ``fac=None``."""
     from ..solver.evolve import EvolveCarry
 
     pop = leaves.pop

@@ -23,6 +23,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import sys, maus_tpu_torch\n"
         "import maus_tpu_torch.ops.kernels.residual, maus_tpu_torch.utils.convert\n"
         "import maus_tpu_torch.ops.kernels.hess_solve, maus_tpu_torch.ops.refine_eig\n"
+        "import maus_tpu_torch.ops.kernels.cgemm, maus_tpu_torch.ops.kernels.lu\n"
         "import maus_tpu_torch.utils.truth\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'maus_tpu.')) or m == 'maus_tpu')\n"
@@ -35,7 +36,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str(sorted(
         ["MausSolver", "ProblemKnowledge", "ProblemType", "SolutionReport",
-         "SolverConfig", "eig", "solve"]))
+         "SolverConfig", "eig", "solve", "svd"]))
 
 
 def test_package_sources_never_import_jax():
