@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of maus_tpu_torch on one NVIDIA GPU: the quickest proof that the
 port builds, that its kernels agree with their plain versions, and that its
-three main paths run on the card through those kernels: a dense,
-ill-conditioned complex64 Ax=b at 4096², κ = 1e6, solved to 1e-8 (kernel
-K1); 16 eigenpairs of a general complex64 4096² operand to 1e-8 (kernel K2,
-and the blocked LU P3/P4 with the complex GEMM K3 in its finisher); and 16
-singular triplets of a 4096×2048 operand to 1e-6 (P3, P4 and K3 in its
-finisher).
+main paths run on the card through those kernels: a dense, ill-conditioned
+complex64 Ax=b at 4096², κ = 1e6, solved to 1e-8 (kernel K1); 16 eigenpairs
+of a general complex64 4096² operand to 1e-8 (kernel K2, and the blocked LU
+P3/P4 with the complex GEMM K3 in its finisher); 16 singular triplets of a
+4096×2048 operand to 1e-6 (P3, P4 and K3 in its finisher); the A/B of K2's
+two blocked variants P1 and P2 beside K2, as the JAX package's probes run
+them; 16 eigenpairs of a Hermitian complex64 operand at 4096² (deflated
+Lanczos) and 2048² (shared eigh), both finished through P4; and the
+reference's four scenarios through the CLI.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
   0. the card, as nvidia-smi names it, with its power limit;
-  1. build kernels K1, K2, K3, P3 and P4 from maus_tpu_torch/csrc/ (one nvcc
-     per source, all started together);
+  1. build kernels K1, K2, P1, P2, K3, P3 and P4 from maus_tpu_torch/csrc/
+     (one nvcc per source, all started together);
   2. K1 (the true-FP64 residual) against its plain PyTorch version at the
      main path's shapes and a few ragged ones, within 1e-15·‖A‖_F·‖x‖, and
      the median time of each and of torch.addmv at complex128;
@@ -26,7 +29,12 @@ Phases, each printing its own lines:
      ‖(H + s_k I)w_k − b_k‖/‖b_k‖ and the normwise backward error, with
      the zero-pivot contract and the global-memory carried row (N = 10241,
      complex128), and the median times of the kernel, the plain version and
-     torch.linalg.solve (dense batched LU) at the slice shape;
+     torch.linalg.solve (dense batched LU) at the slice shape; then P1 and
+     P2 (K2 with a blocked back substitution; P2 also divide-free, with R in
+     column tiles) held the same way on the same inputs and shapes, with the
+     zero-pivot contract, and their A/B beside K2 as the JAX probes run it:
+     the v1-vs-v2 and v1-vs-v3 relative differences and the median times of
+     each kernel and its plain version;
   6. maus_tpu_torch.eig of A = (G₁ + iG₂)/√N at 4096², complex64, 32
      candidates, 16 targets, tol 1e-8: ≥ 16 distinct pairs, the best 16 each
      at ≤ 1e-8 by an independent complex128 residual and pairwise distinct,
@@ -47,11 +55,23 @@ Phases, each printing its own lines:
      k < 16, then logspace(−2, −4)), 32 candidates, 16 targets, tol 1e-6:
      ≥ 16 distinct triplets, the 16 largest σ within 1e-8 of 0.8^k and at
      ≤ 1e-6 by an independent complex128 residual, with the launch counts of
-     P3, P4 and K3; one first run, then one timed warm run.
+     P3, P4 and K3; one first run, then one timed warm run;
+ 10. maus_tpu_torch.eig of the Hermitian A = (G + Gᴴ)/2, G = (G₁ + iG₂)/√N,
+     at 4096², complex64, 32 candidates, 16 targets, tol 1e-8 (N past
+     eigh_max_n: the deflated-Lanczos branch): diagnosed Hermitian, ≥ 16
+     distinct pairs, the best 16 each at ≤ 1e-8 by an independent
+     complex128 residual and within 1e-8·‖A‖₂ of torch.linalg.eigvalsh of
+     the complex128 operand, P4 launched by the finisher; one first run,
+     then one timed warm run;
+ 11. the same at 2048², one run: the shared-eigh branch (no Lanczos call);
+ 12. maus_tpu_torch.cli.main(["scenarios"]) on the card: exit code 0 and the
+     reference's four scenarios passed at 1/1, 8/8, 8/8 and 2/2.
 Then a JSON line with the kernel table, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises, so the script exits
 non-zero and prints no result line; so does a machine without CUDA.
 """
+import contextlib
+import io
 import json
 import math
 import os
@@ -81,8 +101,13 @@ LU_BATCH = 8                 # the finishers' chunk of per-candidate systems
 # finish_s with torch.linalg.lu_factor, first smoke run and final run
 PR2_FINISH_S = (1.880, 2.094)
 # the smallest complex128 N whose carried row leaves K2's shared memory
-# (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES)
+# (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES), and that of
+# P1 and P2 (_SHARED_ROW_BYTES_BLOCKED)
 K2_GLOBAL_ROW_N = 10241
+BLOCKED_GLOBAL_ROW_N = 8193
+HERM_SMALL_N = 2048          # the shared-eigh branch (SolverConfig.eigh_max_n)
+# the reference's scenario counts (README.md, "Results vs the reference")
+SCENARIO_COUNTS = ["1/1", "8/8", "8/8", "2/2"]
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the FP32 and FP64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -260,18 +285,19 @@ def backward_error(H, shifts, W, B):
                 + torch.linalg.vector_norm(B, dim=-1))
 
 
-def check_k2(hess_solve, H, shifts, B, label):
-    """K2 against its plain version on the same inputs. Each is held to the
+def check_k2(solve, plain, H, shifts, B, label):
+    """A shifted Hessenberg solve kernel (K2, P1 or P2: ``solve``) against
+    its plain version on the same inputs. Each is held to the
     relative-residual bar (5e-5 in complex64, 1e-12 in complex128, the JAX
     package's Pallas-kernel bar); where the systems are so ill-conditioned
     that the plain version itself misses it, the kernel must stay within 2×
     the plain version's residual, and its normwise backward error must stay
-    under the same bar. Returns the numbers."""
+    under the same bar. Returns the numbers and the kernel's solution."""
     import torch
 
     bar = 5e-5 if B.dtype == torch.complex64 else 1e-12
-    Wk = hess_solve.hess_solve(H, shifts, B)
-    Wp = hess_solve.hess_solve_plain(H, shifts, B)
+    Wk = solve(H, shifts, B)
+    Wp = plain(H, shifts, B)
     torch.cuda.synchronize()
     rk = float(shifted_residual(H, shifts, Wk, B).max())
     rp = float(shifted_residual(H, shifts, Wp, B).max())
@@ -281,15 +307,18 @@ def check_k2(hess_solve, H, shifts, B, label):
     rel_err = err / float(Wp.abs().max())
     if not (rk <= max(bar, 2.0 * rp) and bk <= bar and bool(torch.isfinite(
             torch.view_as_real(Wk)).all())):
-        raise AssertionError(f"K2 {label}: kernel residual {rk:.3e} vs plain "
+        raise AssertionError(f"{label}: kernel residual {rk:.3e} vs plain "
                              f"{rp:.3e}, backward error {bk:.3e} (bar {bar:g})")
     return dict(resid=rk, plain_resid=rp, berr=bk, plain_berr=bp,
-                max_abs_err=err, rel_err=rel_err, bar=bar)
+                max_abs_err=err, rel_err=rel_err, bar=bar, W=Wk)
 
 
-def eig_and_check(maus_tpu_torch, hess_solve, A, label):
+def eig_and_check(maus_tpu_torch, hess_solve, A, label, hermitian=False):
     """One maus_tpu_torch.eig at the slice settings, held to the contract;
-    returns the numbers."""
+    returns the numbers. A general A must have gone through K2; a Hermitian
+    A must be diagnosed Hermitian, and each of the best pairs' λ must lie
+    within TOL·‖A‖₂ of an eigenvalue of torch.linalg.eigvalsh of the
+    complex128 operand."""
     import numpy as np
     import torch
 
@@ -333,12 +362,29 @@ def eig_and_check(maus_tpu_torch, hess_solve, A, label):
                     overlap[i, j] > 0.999:
                 raise AssertionError(f"{label}: pairs {i}, {j} are one "
                                      f"eigenpair (λ {lams[i]}, {lams[j]})")
-    if launches <= 0:
+    out = dict(wall_s=wall, iterations=rep.iterations,
+               num_distinct=rep.num_distinct, worst_of_best=max(indep),
+               worst_reported=max(rep.residuals[i] for i in order),
+               launches=launches, **rep.timings)
+    if hermitian:
+        w = torch.linalg.eigvalsh(A128).cpu().numpy()
+        lam_err = max(float(np.min(np.abs(w - lam))) for lam in lams)
+        bar = TOL * float(np.abs(w).max())
+        if not (rep.knowledge.is_hermitian and lam_err <= bar):
+            raise AssertionError(f"{label}: Hermitian {rep.knowledge.is_hermitian}, "
+                                 f"λ off eigvalsh by {lam_err:.3e} > {bar:.3e}")
+        out["lam_err"] = lam_err
+    elif launches <= 0:
         raise AssertionError(f"{label}: the eig launched K2 {launches} times")
-    return dict(wall_s=wall, iterations=rep.iterations,
-                num_distinct=rep.num_distinct, worst_of_best=max(indep),
-                worst_reported=max(rep.residuals[i] for i in order),
-                launches=launches, **rep.timings)
+    return out
+
+
+def hermitian_operand(n, seed, device):
+    """A = (G + Gᴴ)/2 with G = (G₁ + iG₂)/√N (eig_operand), complex64: the
+    JAX package's Hermitian eig probe operand
+    (benchmarks/spectral_large_probe.py, _device_operand, kind hermitian)."""
+    G = eig_operand(n, seed, device)
+    return ((G + G.mH) / 2).contiguous()
 
 
 def cnormal(gen, shape, dtype, device):
@@ -524,17 +570,21 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import maus_tpu_torch
-    from maus_tpu_torch.ops import hessenberg
+    from maus_tpu_torch import cli
+    from maus_tpu_torch.ops import hessenberg, lanczos
     from maus_tpu_torch.ops.kernels import build, cgemm, hess_solve, lu, residual
 
     def reset_counts():
         residual.LAUNCHES = hess_solve.LAUNCHES = cgemm.LAUNCHES = 0
+        hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
         lu.LAUNCHES = lu.PANEL_LAUNCHES = 0
+        lanczos.CALLS = 0
 
     def counts():
         return dict(K1=residual.LAUNCHES, K2=hess_solve.LAUNCHES,
+                    P1=hess_solve.LAUNCHES_V2, P2=hess_solve.LAUNCHES_V3,
                     P3_panel=lu.PANEL_LAUNCHES, P4_blocked=lu.LAUNCHES,
-                    K3=cgemm.LAUNCHES)
+                    K3=cgemm.LAUNCHES, lanczos_calls=lanczos.CALLS)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -626,7 +676,23 @@ def main():
     shifts = (-lam).contiguous()
     B = torch.complex(torch.randn(K, EIG_N, generator=gen, device=dev),
                       torch.randn(K, EIG_N, generator=gen, device=dev))
-    k2 = check_k2(hess_solve, H, shifts, B, f"({K}, {EIG_N}) complex64")
+    k2 = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_plain, H, shifts,
+                  B, f"K2 ({K}, {EIG_N}) complex64")
+    # P1 and P2, K2's function with a blocked back substitution, on the same
+    # inputs and held to the same bars (the JAX package's A/B probes,
+    # benchmarks/hess_v2_probe.py and hess_v3_probe.py, run them so)
+    variants = {"P1": (hess_solve.hess_solve_v2, hess_solve.hess_solve_v2_plain),
+                "P2": (hess_solve.hess_solve_v3, hess_solve.hess_solve_v3_plain)}
+    pv = {}
+    for name, (solve, plain) in variants.items():
+        pv[name] = check_k2(solve, plain, H, shifts, B,
+                            f"{name} ({K}, {EIG_N}) complex64")
+        r = pv[name]
+        say(5, f"{name} vs plain ({K}, {EIG_N}) complex64: residual kernel "
+               f"{r['resid']:.3e}, plain {r['plain_resid']:.3e}; backward error "
+               f"kernel {r['berr']:.3e}, plain {r['plain_berr']:.3e} (bar "
+               f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e} "
+               f"({r['rel_err']:.3e} of max|w|)")
     say(5, f"K2 vs plain ({K}, {EIG_N}) complex64: residual kernel "
            f"{k2['resid']:.3e}, plain {k2['plain_resid']:.3e}; backward error "
            f"kernel {k2['berr']:.3e}, plain {k2['plain_berr']:.3e} (bar "
@@ -643,10 +709,16 @@ def main():
                            torch.randn(k, generator=gen, dtype=rdt, device=dev)) * 0.3
         Bn = torch.complex(torch.randn(k, n, generator=gen, dtype=rdt, device=dev),
                            torch.randn(k, n, generator=gen, dtype=rdt, device=dev))
-        r = check_k2(hess_solve, Hn, sn, Bn, f"({k}, {n}) {dtype}")
+        r = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_plain, Hn, sn,
+                     Bn, f"K2 ({k}, {n}) {dtype}")
         say(5, f"K2 vs plain ({k}, {n}) {str(dtype)[6:]}: residual kernel "
                f"{r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
                f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
+        for name, (solve, plain) in variants.items():
+            r = check_k2(solve, plain, Hn, sn, Bn, f"{name} ({k}, {n}) {dtype}")
+            say(5, f"{name} vs plain ({k}, {n}) {str(dtype)[6:]}: residual kernel "
+                   f"{r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
+                   f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
         del An, Hn, Bn
     # past the kernel's shared-memory budget the carried row lives in a
     # global scratch row: N = 10241 in complex128, on 3I plus a random
@@ -658,7 +730,8 @@ def main():
         + 3.0 * torch.eye(n, dtype=torch.complex128, device=dev)
     sg = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device=dev)
     Bg = torch.randn(1, n, generator=gen, dtype=torch.complex128, device=dev)
-    r = check_k2(hess_solve, Hg, sg, Bg, f"(1, {n}) complex128")
+    r = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_plain, Hg, sg, Bg,
+                 f"K2 (1, {n}) complex128")
     say(5, f"K2 vs plain (1, {n}) complex128, carried row in global memory: "
            f"residual kernel {r['resid']:.3e}, plain {r['plain_resid']:.3e} "
            f"(bar {r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
@@ -671,6 +744,31 @@ def main():
     if bool(torch.isfinite(torch.view_as_real(Wz)).all(dim=-1).all(dim=-1).any()):
         raise AssertionError("K2: an exact-zero pivot gave a finite row")
     say(5, "K2 zero-pivot contract: every row of a singular shifted H non-finite")
+    for name, (solve, _) in variants.items():
+        Wz = solve(Hz, torch.zeros(2, dtype=torch.complex64, device=dev),
+                   torch.ones(2, 5, dtype=torch.complex64, device=dev))
+        if bool(torch.isfinite(torch.view_as_real(Wz)).all(dim=-1).all(dim=-1).any()):
+            raise AssertionError(f"{name}: an exact-zero pivot gave a finite row")
+    say(5, "P1, P2 zero-pivot contract: every row of a singular shifted H non-finite")
+    # P1's and P2's carried row in global memory (past their 128 KB budget),
+    # drawn from a generator of its own so that the later phases' draws stay
+    # those of earlier slices
+    gen_pv = torch.Generator(device=dev)
+    gen_pv.manual_seed(SEED + 1)
+    n = BLOCKED_GLOBAL_ROW_N
+    Hg = torch.triu(torch.randn(n, n, generator=gen_pv, dtype=torch.complex128,
+                                device=dev), diagonal=-1) / n \
+        + 3.0 * torch.eye(n, dtype=torch.complex128, device=dev)
+    sg = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device=dev)
+    Bg = torch.randn(1, n, generator=gen_pv, dtype=torch.complex128, device=dev)
+    for name, (solve, plain) in variants.items():
+        r = check_k2(solve, plain, Hg, sg, Bg, f"{name} (1, {n}) complex128")
+        say(5, f"{name} vs plain (1, {n}) complex128, carried row in global "
+               f"memory: residual kernel {r['resid']:.3e}, plain "
+               f"{r['plain_resid']:.3e} (bar {r['bar']:g}); max|Δ| "
+               f"{r['max_abs_err']:.3e}")
+    del Hg, Bg, r
+    torch.cuda.empty_cache()
     k2_ms = time_ms(lambda: hess_solve.hess_solve(H, shifts, B), reps=10)
     k2_plain_ms = time_ms(lambda: hess_solve.hess_solve_plain(H, shifts, B), reps=2)
     Hd = H[None] + torch.diag_embed(shifts[:, None].expand(K, EIG_N))
@@ -690,7 +788,30 @@ def main():
            f"alone {k2_bytes_ms:.4f} ms); the "
            f"packed R round trip's floor {r_roundtrip_ms:.3f} ms is "
            f"{100 * r_roundtrip_ms / k2_ms:.1f}% of the kernel's time")
-    del H, B, shifts
+    # the A/B of the JAX probes: P1 and P2 beside K2 on one (H, shifts, B),
+    # the v1-vs-vX difference and each kernel's time; the launches of P1
+    # and P2 on this path are counted from here
+    hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
+    W1 = k2.pop("W")
+    for name, (solve, plain) in variants.items():
+        r = pv[name]
+        Wv = solve(H, shifts, B)
+        r["v1_rel_diff"] = float((W1 - Wv).abs().max()) / max(float(W1.abs().max()),
+                                                               1e-30)
+        del Wv, r["W"]
+        r["ms"] = time_ms(lambda: solve(H, shifts, B), reps=10)
+        r["plain_ms"] = time_ms(lambda: plain(H, shifts, B), reps=2)
+    pv["P1"]["launches"] = hess_solve.LAUNCHES_V2
+    pv["P2"]["launches"] = hess_solve.LAUNCHES_V3
+    k2_again_ms = time_ms(lambda: hess_solve.hess_solve(H, shifts, B), reps=10)
+    for name, r in pv.items():
+        say(5, f"{name} at ({K}, {EIG_N}) complex64: kernel {r['ms']:.3f} ms "
+               f"({k2_ms / r['ms']:.2f}× K2's {k2_ms:.3f} ms; K2 again after "
+               f"both: {k2_again_ms:.3f} ms), plain {r['plain_ms']:.1f} ms, "
+               f"torch.linalg.solve {k2_lib_ms:.1f} ms, bound {k2_bound:.4f} ms "
+               f"({k2_by}, the work of K2); v1-vs-{name} rel diff "
+               f"{r['v1_rel_diff']:.3e}; launches {r['launches']}")
+    del H, B, shifts, W1
     torch.cuda.empty_cache()
 
     # ---- phase 6: maus_tpu_torch.eig on the card ---------------------------
@@ -914,6 +1035,77 @@ def main():
            f"warm wall {warm['wall_s']:.3f} s (one run after one first run); peak "
            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del A_svd
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: Hermitian eig at 4096², the deflated-Lanczos branch ------
+    A = hermitian_operand(EIG_N, SEED, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = eig_and_check(maus_tpu_torch, hess_solve, A, f"{EIG_N}² Hermitian eig",
+                          hermitian=True)
+    herm_counts = counts()
+    say(10, f"launches on the Hermitian (Lanczos) eig path: {herm_counts}")
+    if herm_counts["P4_blocked"] <= 0 or herm_counts["lanczos_calls"] <= 0:
+        raise AssertionError(f"the {EIG_N}² Hermitian eig ran P4 "
+                             f"{herm_counts['P4_blocked']} and Lanczos "
+                             f"{herm_counts['lanczos_calls']} times")
+    say(10, f"first Hermitian eig {EIG_N}²: {first}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    warm = eig_and_check(maus_tpu_torch, hess_solve, A, f"{EIG_N}² Hermitian eig",
+                         hermitian=True)
+    say(10, f"{EIG_N}² Hermitian eig (Lanczos): {warm['num_distinct']} distinct "
+            f"pairs (target {EIG_TARGETS}) in {warm['iterations']} iterations; "
+            f"best {EIG_TARGETS} at ≤ {warm['worst_of_best']:.3e} (independent "
+            f"complex128), reported ≤ {warm['worst_reported']:.3e}, λ within "
+            f"{warm['lam_err']:.3e} of eigvalsh; setup {warm['setup_s']:.3f} s, "
+            f"engine {warm['engine_s']:.3f} s, finisher {warm['finish_s']:.3f} s; "
+            f"warm wall {warm['wall_s']:.3f} s (one run after one first run); "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del A
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: Hermitian eig at 2048², the shared-eigh branch -----------
+    A = hermitian_operand(HERM_SMALL_N, SEED, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    small = eig_and_check(maus_tpu_torch, hess_solve, A,
+                          f"{HERM_SMALL_N}² Hermitian eig", hermitian=True)
+    small_counts = counts()
+    if small_counts["lanczos_calls"] != 0 or small_counts["P4_blocked"] <= 0:
+        raise AssertionError(f"the {HERM_SMALL_N}² Hermitian eig called Lanczos "
+                             f"{small_counts['lanczos_calls']} times (the shared "
+                             f"eigh takes N ≤ eigh_max_n) and P4 "
+                             f"{small_counts['P4_blocked']} times")
+    say(11, f"launches on the Hermitian (shared eigh) eig path: {small_counts}")
+    say(11, f"{HERM_SMALL_N}² Hermitian eig (shared eigh): {small['num_distinct']} "
+            f"distinct pairs (target {EIG_TARGETS}) in {small['iterations']} "
+            f"iterations; best {EIG_TARGETS} at ≤ {small['worst_of_best']:.3e} "
+            f"(independent complex128), λ within {small['lam_err']:.3e} of "
+            f"eigvalsh; eigh setup {small['setup_s']:.3f} s, engine "
+            f"{small['engine_s']:.3f} s, finisher {small['finish_s']:.3f} s; wall "
+            f"{small['wall_s']:.3f} s (one run); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del A
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: the reference's scenarios through the CLI, on the card ---
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["scenarios"])
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[")]
+    for ln in lines:
+        say(12, ln)
+    got = [ln.split(": ")[-1].split(" ")[0] for ln in lines]
+    if rc != 0 or len(lines) != 4 or not all(ln.startswith("[PASS]") for ln in lines) \
+            or got != SCENARIO_COUNTS:
+        raise AssertionError(f"scenarios: exit code {rc}, counts {got} "
+                             f"(want {SCENARIO_COUNTS})")
+    say(12, f"scenarios: exit code 0, four passed in {wall:.2f} s")
 
     k64 = kernel_rows[torch.complex64]
     k1_bound, k1_by = bound_ms(k64["nbytes"], k64["flops"], FP64_FLOPS)
@@ -929,7 +1121,14 @@ def main():
         "replaces": "maus_tpu/ops/pallas/hess_solve.py:158",
         "launches": eig_launches, "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-        "bound_by": k2_by, "library_ms": k2_lib_ms}, {
+        "bound_by": k2_by, "library_ms": k2_lib_ms}, *[{
+        "name": name, "route": "cuda", "source": f"maus_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces, "launches": pv[key]["launches"],
+        "max_abs_err": pv[key]["max_abs_err"], "ms": pv[key]["ms"],
+        "plain_ms": pv[key]["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by,
+        "library_ms": k2_lib_ms} for key, name, replaces in (
+            ("P1", "hess_solve_v2", "benchmarks/hess_v2_probe.py:168"),
+            ("P2", "hess_solve_v3", "benchmarks/hess_v3_probe.py:187"))], {
         "name": "cgemm", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm.cu",
         "replaces": "maus_tpu/ops/pallas/cgemm.py:57",
         "launches": svd_counts["K3"], "max_abs_err": u_err, "ms": u_ms,

@@ -1,0 +1,154 @@
+"""Command-line interface of the port (counterpart of ``maus_tpu/cli.py``):
+the reference's demo scenarios and generated solve, eig and SVD runs, with
+the same arguments, defaults, output lines and exit codes.
+
+    python -m maus_tpu_torch scenarios          # the reference's 4 scenarios
+    python -m maus_tpu_torch solve --n 64       # generated Ax=b
+    python -m maus_tpu_torch eig --n 8 --hermitian
+    python -m maus_tpu_torch svd --rows 5 --cols 4
+
+Runs go on the CUDA card; ``--cpu`` runs them on the CPU (complex128).
+Every subcommand exits 0 when the run reached its target, else 1.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+
+def _report_lines(rep, check=None):
+    yield (f"{rep.problem_type.name}: {rep.num_distinct}/{rep.target_solutions} "
+           f"distinct solutions in {rep.iterations} iterations "
+           f"(energy {rep.landscape_energy:.3f})")
+    for sol, res in zip(rep.solutions, rep.residuals):
+        if rep.problem_type.name == "EIGENVALUE":
+            yield f"  λ = {sol[0]:.6g}   residual {res:.3e}"
+        elif rep.problem_type.name == "SVD":
+            yield f"  σ = {sol[0]:.6g}   residual {res:.3e}"
+        else:
+            yield f"  ‖x‖ = {np.linalg.norm(sol[0]):.6g}   rel residual {res:.3e}"
+    if check is not None:
+        yield (f"  vs LAPACK truth: matched {check.matched}/{check.total_found}, "
+               f"max err {check.max_abs_error:.3e}")
+
+
+def _finish(rep, args, A, b=None):
+    from .utils import truth
+
+    check = truth.compare(rep, A, b) if args.check else None
+    print("\n".join(_report_lines(rep, check)))
+    return 0 if rep.converged else 1
+
+
+def cmd_solve(args):
+    from . import solve
+    from .problems import generators as gen
+
+    if args.ill_conditioned:
+        A, b = gen.ill_conditioned_system(args.n, cond=args.cond, seed=args.seed)
+    else:
+        A, b = gen.well_conditioned_system(args.n, seed=args.seed)
+    rep = solve(A, b, tol=args.tol, max_iterations=args.iters,
+                num_candidates=args.cands, seed=args.seed, device=args.device)
+    return _finish(rep, args, A, b)
+
+
+def cmd_eig(args):
+    from . import eig
+    from .problems import generators as gen
+
+    A = gen.laplace_like_complex(args.n, make_hermitian=args.hermitian,
+                                 seed=args.seed)
+    rep = eig(A, tol=args.tol, max_iterations=args.iters,
+              num_candidates=args.cands, seed=args.seed, device=args.device)
+    return _finish(rep, args, A)
+
+
+def cmd_svd(args):
+    from . import svd
+    from .problems import generators as gen
+
+    A = gen.low_rank_svd_matrix(args.rows, args.cols, target_rank=args.rank,
+                                seed=args.seed)
+    rep = svd(A, tol=args.tol, max_iterations=args.iters,
+              num_candidates=args.cands, seed=args.seed, device=args.device)
+    return _finish(rep, args, A)
+
+
+def cmd_scenarios(args):
+    """The reference's 4-scenario demo suite with pass/fail."""
+    from . import eig, solve, svd
+    from .problems import generators as gen
+
+    dev = args.device
+    results = []
+
+    A, b = gen.dynamic_solve_system(5, t_step=19, time_max_iter=20)
+    rep = solve(A, b, tol=1e-7, max_iterations=50, num_candidates=15, device=dev)
+    results.append(("1: N=5 dynamic Ax=b", rep.num_distinct >= 1, rep))
+
+    A = gen.laplace_like_complex(8, make_hermitian=False)
+    rep = eig(A, tol=1e-7, max_iterations=80, num_candidates=30, device=dev)
+    results.append(("2A: N=8 general eig", rep.num_distinct == 8, rep))
+
+    A = gen.laplace_like_complex(8, make_hermitian=True)
+    rep = eig(A, tol=1e-7, max_iterations=50, num_candidates=30, device=dev)
+    results.append(("2B: N=8 Hermitian eig", rep.num_distinct == 8, rep))
+
+    A = gen.low_rank_svd_matrix(5, 4, target_rank=2)
+    rep = svd(A, tol=1e-6, max_iterations=100, num_candidates=25, device=dev)
+    results.append(("3: 5x4 rank-2 SVD", rep.num_distinct >= 2, rep))
+
+    ok_all = True
+    for name, ok, rep in results:
+        status = "PASS" if ok else "FAIL"
+        print(f"[{status}] scenario {name}: {rep.num_distinct}/"
+              f"{rep.target_solutions} distinct in {rep.iterations} iters")
+        ok_all &= ok
+    return 0 if ok_all else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="maus_tpu_torch",
+                                 description="MAUS solver on PyTorch and CUDA")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (complex128) instead of the CUDA card")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--tol", type=float, default=1e-8)
+    common.add_argument("--iters", type=int, default=100)
+    common.add_argument("--cands", type=int, default=None)
+    common.add_argument("--seed", type=int, default=0)
+    common.add_argument("--check", action="store_true",
+                        help="compare against LAPACK truth")
+
+    p = sub.add_parser("solve", parents=[common])
+    p.add_argument("--n", type=int, default=64)
+    p.add_argument("--ill-conditioned", action="store_true")
+    p.add_argument("--cond", type=float, default=1e6)
+    p.set_defaults(fn=cmd_solve)
+
+    p = sub.add_parser("eig", parents=[common])
+    p.add_argument("--n", type=int, default=8)
+    p.add_argument("--hermitian", action="store_true")
+    p.set_defaults(fn=cmd_eig)
+
+    p = sub.add_parser("svd", parents=[common])
+    p.add_argument("--rows", type=int, default=5)
+    p.add_argument("--cols", type=int, default=4)
+    p.add_argument("--rank", type=int, default=2)
+    p.set_defaults(fn=cmd_svd)
+
+    p = sub.add_parser("scenarios")
+    p.set_defaults(fn=cmd_scenarios)
+
+    args = ap.parse_args(argv)
+    args.device = "cpu" if args.cpu else None
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,8 +19,7 @@ import torch
 
 
 class ProblemType(enum.IntEnum):
-    """Problem classes (reference ``ProblemType``). The port runs
-    SOLVE_LINEAR_SYSTEM, non-Hermitian EIGENVALUE and SVD."""
+    """Problem classes (reference ``ProblemType``)."""
 
     EIGENVALUE = 0
     SOLVE_LINEAR_SYSTEM = 1
@@ -69,11 +68,10 @@ RANK_REL_CUT = 1e-4
 class SolverConfig:
     """Static solver configuration; defaults as in the JAX package.
 
-    Only the fields the linear, non-Hermitian eig and SVD paths read are
-    here; the Hermitian-eig fields arrive with their slice. Not carried
-    over: ``host_refactor``, which
-    exists only for XLA:TPU's 16 MB scoped-VMEM cap on conditional branches
-    (the port refactorizes in ordinary Python control flow at any size).
+    Only the fields the ported paths read are here. Not carried over:
+    ``host_refactor``, which exists only for XLA:TPU's 16 MB scoped-VMEM
+    cap on conditional branches (the port refactorizes in ordinary Python
+    control flow at any size).
     One default differs: ``max_refine_steps`` (see its comment).
     """
 
@@ -116,6 +114,9 @@ class SolverConfig:
                                      # while 24 of IR reach 2.3e-10; the JAX
                                      # bench passes 60. The loop exits early
                                      # at tol or on a stall.
+    eigh_max_n: int = 2048           # Hermitian eig: shared full eigh up to
+                                     # this N; beyond it (or for sparse
+                                     # input) per-candidate deflated Lanczos
     use_hessenberg: bool = True      # non-Hermitian eig: reduce A = Q H Qᴴ once
                                      # and run every shifted solve as an O(N²)
                                      # Givens QR on (H − λI), kernel K2;

@@ -21,7 +21,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("true_residual.cu", "hess_solve.cu", "cgemm.cu", "lu.cu")
+SOURCES = ("true_residual.cu", "hess_solve.cu", "hess_solve_v2.cu",
+           "hess_solve_v3.cu", "cgemm.cu", "lu.cu")
+HEADERS = ("hess_common.cuh", "hess_blocked.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -44,7 +46,7 @@ def find_nvcc() -> str:
 
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libmaus_kernels-{h.hexdigest()[:16]}.so")
@@ -95,6 +97,11 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            for name in ("maus_hess_solve_v2", "maus_hess_solve_v3"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+                    [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             ptr, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_double)
             for name, args in (

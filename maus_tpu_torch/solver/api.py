@@ -1,8 +1,8 @@
 """User-facing API: :class:`MausSolver`, :func:`solve`, :func:`eig` and
 :func:`svd`.
 
-Counterpart of the linear, non-Hermitian eig and SVD parts of
-``maus_tpu/solver/api.py``. Construction stages the operand on the device
+Counterpart of the single-device parts of ``maus_tpu/solver/api.py``.
+Construction stages the operand on the device
 (the card unless the caller passes ``device="cpu"``), diagnoses it and picks
 the working dtype (complex128 on the CPU, complex64 on CUDA — as the JAX
 package uses complex128 only off the accelerator); ``evolve`` runs the
@@ -13,9 +13,9 @@ eigenpairs and singular triplets.
 
 Not carried over: the host-refactor driving and the hoisted large-N
 Hessenberg program (TPU workarounds), the TPU-QR halving of the finisher's
-chunk, and ``_stage_operand``'s complex host-crossing workarounds
-(``utils/xfer.py``). The mesh paths, checkpointing, metrics capture,
-``update_problem`` and Hermitian eig wait for later slices.
+chunk, ``_stage_operand``'s complex host-crossing workarounds
+(``utils/xfer.py``) and, in ``update_problem``, the host-refactor policy.
+The mesh paths, checkpointing and metrics capture wait for later slices.
 """
 from __future__ import annotations
 
@@ -47,8 +47,8 @@ class SolutionReport:
     and ``v`` a numpy vector (complex128 once finished), and ``(σ, u, v)``
     for an SVD, with σ a Python float. ``timings``
     holds the host seconds of each phase of ``evolve`` (``setup_s``, the
-    shared Hessenberg reduction; ``engine_s``; ``finish_s``), each phase
-    ending in a device synchronisation."""
+    shared Hessenberg reduction or eigh; ``engine_s``; ``finish_s``), each
+    phase ending in a device synchronisation."""
 
     problem_type: ProblemType
     solutions: list
@@ -226,8 +226,8 @@ def _final_dedup(cfg: SolverConfig, solutions: list,
 
 
 class MausSolver:
-    """Population-based meta-heuristic solver for Ax=b, non-Hermitian Ax=λx
-    and the SVD (PyTorch port)."""
+    """Population-based meta-heuristic solver for Ax=b, Ax=λx and the SVD
+    (PyTorch port)."""
 
     # finisher chunk: each candidate factors its own (N, N) shifted system,
     # so bound the chunk's factorization workspace at about 2 GiB
@@ -247,19 +247,8 @@ class MausSolver:
         self.device = _resolve_device(matrix, device)
         compute_dtype = config.dtype if config is not None else \
             (C128 if self.device.type == "cpu" else torch.complex64)
-        with full_precision():
-            A_host, A_work, A_true, exact = _stage_operand(
-                matrix, compute_dtype, self.device, problem_type)
-            self.knowledge = knowledge if knowledge is not None else diagnose(
-                matrix if A_host is not None else None, problem_type,
-                device_operand=A_work,
-                device_full=A_true if A_true is not A_work else None,
-                device_exact=exact)
+        A_work = self._set_operand(matrix, compute_dtype, problem_type, knowledge)
         m, n = self.knowledge.shape
-        if problem_type == ProblemType.EIGENVALUE and self.knowledge.is_hermitian:
-            raise NotImplementedError("Hermitian eig (shared eigh, deflated "
-                                      "Lanczos) is not ported to "
-                                      "maus_tpu_torch yet")
 
         if config is None:
             if initial_num_candidates is None:
@@ -285,16 +274,51 @@ class MausSolver:
         self.config = config
         self.target_solutions = min(default_target_solutions(config, self.knowledge),
                                     config.num_candidates)
-        self.A_host = A_host
         self.A = A_work if A_work.dtype == config.dtype else \
-            A_true.to(config.dtype).contiguous()
-        self.A_true = A_true
+            self.A_true.to(config.dtype).contiguous()
         self.b = self.b_true = None
         if linear:
             self.b, self.b_true = _stage_rhs(b_vector, n, config.dtype, self.device)
         self._seed = int(seed)
         self._fac_cache = None
         self._A64 = None
+
+    def _set_operand(self, matrix, compute_dtype: torch.dtype,
+                     problem_type: ProblemType,
+                     knowledge: Optional[ProblemKnowledge] = None) -> torch.Tensor:
+        """Stage ``matrix`` on the solver's device and diagnose it (unless
+        ``knowledge`` is given); sets ``A_host``, ``A_true`` and
+        ``knowledge`` and returns the working-dtype copy."""
+        with full_precision():
+            A_host, A_work, A_true, exact = _stage_operand(
+                matrix, compute_dtype, self.device, problem_type)
+            self.knowledge = knowledge if knowledge is not None else diagnose(
+                matrix if A_host is not None else None, problem_type,
+                device_operand=A_work,
+                device_full=A_true if A_true is not A_work else None,
+                device_exact=exact)
+        self.A_host, self.A_true = A_host, A_true
+        return A_work
+
+    def update_problem(self, matrix=None, b_vector=None) -> None:
+        """Swap the operand and/or the right-hand side between runs (the
+        reference's scenario 1 swaps both mid-run). A new matrix is staged
+        and diagnosed exactly as the constructor does, so a swapped Hermitian
+        operand takes the Hermitian path, and the target is re-derived; a
+        b-only swap keeps the staged operand and its complex128 copy. A
+        linear system's b must have the operand's length (ValueError); other
+        problems take no b and ignore one. The cached factorization is
+        dropped either way."""
+        cfg = self.config
+        if matrix is not None:
+            self.A = self._set_operand(matrix, cfg.dtype, cfg.problem_type)
+            self.target_solutions = min(
+                default_target_solutions(cfg, self.knowledge), cfg.num_candidates)
+            self._A64 = None
+        if b_vector is not None and cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
+            self.b, self.b_true = _stage_rhs(b_vector, self.knowledge.shape[-1],
+                                             cfg.dtype, self.device)
+        self._fac_cache = None
 
     def evolve(self, max_iterations: int = 100) -> SolutionReport:
         """Run the evolution loop, then take each distinct solution to tol
@@ -303,14 +327,14 @@ class MausSolver:
         timings = {}
         with full_precision():
             t0 = time.perf_counter()
-            hess = evolve_mod._setup_caches(cfg, kn, self.A)
+            caches = evolve_mod._setup_caches(cfg, kn, self.A)
             _sync(self.device)
             timings["setup_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             carry = evolve_mod.evolve_while(cfg, kn, self.A, self.b, self._seed,
                                             max_iterations, self.target_solutions,
-                                            hess_cache=hess)
-            del hess
+                                            caches=caches)
+            del caches
             _sync(self.device)
             timings["engine_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -497,11 +521,13 @@ def eig(A, tol: float = 1e-8, max_iterations: int = 200,
         target_solutions: Optional[int] = None,
         knowledge: Optional[ProblemKnowledge] = None,
         device=None) -> SolutionReport:
-    """Eigenpairs of a general (non-Hermitian) square A on ``device``
-    (default: the card, as for :func:`solve`). ``target_solutions``: how
-    many distinct pairs to search for (default N, clamped to the number of
-    candidates). ``knowledge``: a precomputed :class:`ProblemKnowledge`,
-    which skips the diagnosis. A Hermitian A raises NotImplementedError."""
+    """Eigenpairs of a square A on ``device`` (default: the card, as for
+    :func:`solve`). A general A runs against its shared Hessenberg form; a
+    Hermitian A snaps to a shared eigh when dense and N ≤
+    ``config.eigh_max_n``, else runs a deflated Lanczos per candidate.
+    ``target_solutions``: how many distinct pairs to search for (default N,
+    clamped to the number of candidates). ``knowledge``: a precomputed
+    :class:`ProblemKnowledge`, which skips the diagnosis."""
     s = MausSolver(A, ProblemType.EIGENVALUE,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,

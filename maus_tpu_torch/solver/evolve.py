@@ -1,22 +1,23 @@
-"""The evolution loop for linear systems, non-Hermitian eigenproblems and SVD.
+"""The evolution loop for linear systems, eigenproblems and SVD.
 
 Counterpart of ``maus_tpu/solver/evolve.py`` (``_effective_psi``,
-``make_iteration``, ``init_carry``, ``_use_hessenberg``, ``_setup_caches``,
-``_stop_condition``, ``evolve_while``). The JAX ``lax.while_loop`` becomes an
-eager Python loop with a stop check after every iteration; the ``lax.cond``
-around the shared refactorization becomes a Python branch on a host read.
-Per-iteration order is the reference's: diagnostics → strategy adjustment →
-candidate step → population management. The linear path carries its shared
-factorization across iterations and rebuilds it only when the strategy's Ψ
-rung changes; the eig path carries no factorization and builds the shared
-Hessenberg form once per evolve; the SVD step needs neither (its block round
-is matrix products, two thin QRs and a small SVD).
+``make_iteration``, ``init_carry``, ``_use_hessenberg``, ``_use_shared_eigh``,
+``_setup_caches``, ``_stop_condition``, ``evolve_while``). The JAX
+``lax.while_loop`` becomes an eager Python loop with a stop check after every
+iteration; the ``lax.cond`` around the shared refactorization becomes a
+Python branch on a host read. Per-iteration order is the reference's:
+diagnostics → strategy adjustment → candidate step → population management.
+The linear path carries its shared factorization across iterations and
+rebuilds it only when the strategy's Ψ rung changes; the eig path carries no
+factorization and builds its shared one-time form once per evolve: the
+Hessenberg form for a general operand, the full eigh of a dense Hermitian
+operand up to ``eigh_max_n`` (else per-candidate deflated Lanczos, which
+needs none); the SVD step needs neither (its block round is matrix
+products, two thin QRs and a small SVD).
 
 Not carried over: the host-refactor handoff and ``refactor_psi`` (an XLA:TPU
 scoped-VMEM workaround), the hoisted large-N Hessenberg program (a TPU fault
-workaround) and the mesh branches (a later slice). The Hermitian eig paths
-(shared eigh, deflated Lanczos) are a later slice: a Hermitian operand
-raises.
+workaround) and the mesh branches (a later slice).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from ..ops.batched_solve import shared_factor_hpd, shared_factor_qr
 from ..ops.hessenberg import HessCache, reduce_hessenberg_auto
 from ..ops.regularize import pow10, psi_magnitude
 from . import candidate as cand
+from . import hermitian as herm
 from . import population as popmgmt
 from . import strategy as strat_mod
 
@@ -87,19 +89,15 @@ def _spectral_moments(A: torch.Tensor):
     return center, spread
 
 
-def _check_ported(cfg: SolverConfig, knowledge: ProblemKnowledge) -> None:
-    if cfg.problem_type == ProblemType.EIGENVALUE and knowledge.is_hermitian:
-        raise NotImplementedError("Hermitian eig (shared eigh, deflated "
-                                  "Lanczos) is not ported to maus_tpu_torch yet")
-
-
 def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
                    A: torch.Tensor, b: Optional[torch.Tensor],
                    target_solutions: int,
-                   hess_cache: Optional[HessCache] = None):
+                   hess_cache: Optional[HessCache] = None,
+                   eigh_cache: Optional[herm.EighCache] = None):
     """Build the single-iteration function ``carry → carry``.
-    ``hess_cache``: the shared Hessenberg form of A (eig path)."""
-    _check_ported(cfg, knowledge)
+    ``hess_cache``: the shared Hessenberg form of A (general eig path);
+    ``eigh_cache``: the shared eigh of A (Hermitian eig path; without it a
+    Hermitian operand takes the deflated-Lanczos step)."""
     anorm = _anorm(A)
     lam_center, lam_spread = _spectral_moments(A)
     lam_spread = lam_spread.to(torch.float32)
@@ -116,6 +114,11 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
             if bool(psi_eff != carry.psi_cached):
                 fac = _refactor(knowledge, A, psi_eff)
             pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat)
+        elif cfg.problem_type == ProblemType.EIGENVALUE and knowledge.is_hermitian:
+            if eigh_cache is not None:
+                pop, stats = herm.step_hermitian(cfg, A, eigh_cache, pop, strat)
+            else:
+                pop, stats = herm.step_hermitian_lanczos(cfg, A, pop, strat)
         elif cfg.problem_type == ProblemType.EIGENVALUE:
             pop, stats = cand.step_eigen(cfg, A, pop, strat,
                                          hess_cache=hess_cache)
@@ -167,7 +170,6 @@ def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
                seed: int) -> EvolveCarry:
     """Initial population and strategy; for a linear system also the shared
     factorization at the first Ψ (an eigenproblem carries none)."""
-    _check_ported(cfg, knowledge)
     device = A.device
     lam_center, lam_scale = _spectral_moments(A)
     pop = cand.init_population(cfg, seed, knowledge.shape, device=device,
@@ -187,17 +189,35 @@ def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
 
 def _use_hessenberg(cfg: SolverConfig, knowledge: ProblemKnowledge) -> bool:
     """Shared Hessenberg reduction for the non-Hermitian eig path: one O(N³)
-    setup turns every per-candidate shifted solve into O(N²)."""
+    setup turns every per-candidate shifted solve into O(N²). Hermitian
+    operands take the eigh/Lanczos steps instead."""
     return cfg.problem_type == ProblemType.EIGENVALUE and \
         not knowledge.is_hermitian and cfg.use_hessenberg
 
 
+def _use_shared_eigh(cfg: SolverConfig, knowledge: ProblemKnowledge) -> bool:
+    """Shared full eigh for dense Hermitian operands up to
+    ``cfg.eigh_max_n``; deflated Lanczos beyond it or for sparse input."""
+    if cfg.problem_type != ProblemType.EIGENVALUE or not knowledge.is_hermitian:
+        return False
+    return knowledge.shape[-1] <= cfg.eigh_max_n and not knowledge.is_sparse_input
+
+
+@dataclasses.dataclass
+class Caches:
+    """The per-evolve one-time factorizations shared by every iteration."""
+
+    hess: Optional[HessCache] = None        # general eig: A = Q H Qᴴ
+    eigh: Optional[herm.EighCache] = None   # dense Hermitian eig: A = V W Vᴴ
+
+
 def _setup_caches(cfg: SolverConfig, knowledge: ProblemKnowledge,
-                  A: torch.Tensor) -> Optional[HessCache]:
-    """The per-evolve one-time factorization shared by every iteration: the
-    Hessenberg form A = Q H Qᴴ on the non-Hermitian eig path, else None."""
-    _check_ported(cfg, knowledge)
-    return reduce_hessenberg_auto(A) if _use_hessenberg(cfg, knowledge) else None
+                  A: torch.Tensor) -> Caches:
+    """Build the caches the problem's path uses (none for a linear system,
+    an SVD or the Lanczos branch)."""
+    return Caches(
+        hess=reduce_hessenberg_auto(A) if _use_hessenberg(cfg, knowledge) else None,
+        eigh=herm.eigh_setup(A) if _use_shared_eigh(cfg, knowledge) else None)
 
 
 def _stop_condition(cfg: SolverConfig, target_solutions: int,
@@ -217,16 +237,16 @@ def evolve_while(cfg: SolverConfig, knowledge: ProblemKnowledge,
                  A: torch.Tensor, b: Optional[torch.Tensor], seed: int,
                  max_iterations: int, target_solutions: int,
                  carry0: Optional[EvolveCarry] = None,
-                 hess_cache: Optional[HessCache] = None) -> EvolveCarry:
+                 caches: Optional[Caches] = None) -> EvolveCarry:
     """Iterate until the stop condition holds or ``max_iterations`` (a bound
-    on the carry's total iteration count) is reached. ``hess_cache``: a
-    prebuilt shared Hessenberg form (eig path); built here when not given.
-    The caller sets the matmul precision (``utils/precision.full_precision``,
-    as ``MausSolver.evolve`` does)."""
-    if hess_cache is None:
-        hess_cache = _setup_caches(cfg, knowledge, A)
+    on the carry's total iteration count) is reached. ``caches``: prebuilt
+    shared factorizations (:func:`_setup_caches`); built here when not
+    given. The caller sets the matmul precision
+    (``utils/precision.full_precision``, as ``MausSolver.evolve`` does)."""
+    if caches is None:
+        caches = _setup_caches(cfg, knowledge, A)
     step = make_iteration(cfg, knowledge, A, b, target_solutions,
-                          hess_cache=hess_cache)
+                          hess_cache=caches.hess, eigh_cache=caches.eigh)
     carry = carry0 if carry0 is not None else init_carry(cfg, knowledge, A, seed)
     while not bool((carry.iteration >= max_iterations) |
                    _stop_condition(cfg, target_solutions, carry)):

@@ -56,6 +56,15 @@ def hess_from_numpy(cache, device=None) -> HessCache:
     return HessCache(h=_t(cache.h, device).contiguous(), q=_t(cache.q, device))
 
 
+def eigh_from_numpy(cache, device=None):
+    """The port's ``EighCache`` from the JAX package's (fields ``w``, ``V``,
+    numpy leaves). Eigenvector phases differ between LAPACK builds, so a
+    parity test hands both packages one decomposition."""
+    from ..solver.hermitian import EighCache
+
+    return EighCache(w=_t(cache.w, device), V=_t(cache.V, device))
+
+
 def carry_from_numpy(leaves, device=None):
     """The port's ``EvolveCarry`` from the JAX package's carry with numpy
     leaves (fields ``pop``, ``strat``, ``fac``, ``psi_cached``,

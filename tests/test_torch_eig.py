@@ -312,12 +312,16 @@ def test_eig_target_and_knowledge():
 
 
 def test_hermitian_eig_and_svd_are_not_ported():
-    """Hermitian eig is not ported yet and raises; SVD is ported since the
-    third slice, so its solver now constructs (the SVD path itself is held
-    to the JAX package in tests/test_torch_svd.py)."""
-    with pytest.raises(NotImplementedError):
-        maus_tpu_torch.eig(gen.laplace_like_complex(8, make_hermitian=True),
-                           device="cpu")
+    """Both are ported now (SVD in the third slice, Hermitian eig in the
+    fourth): a Hermitian operand runs through the Hermitian path (held to
+    the JAX package in tests/test_torch_hermitian.py) and the SVD solver
+    constructs (tests/test_torch_svd.py)."""
+    A = gen.laplace_like_complex(8, make_hermitian=True)
+    rep = maus_tpu_torch.eig(A, tol=1e-7, num_candidates=30, max_iterations=50,
+                             device="cpu")
+    assert rep.knowledge.is_hermitian and rep.num_distinct == 8
+    for lam, v in rep.solutions:
+        assert abs(lam.imag) < 1e-12 and np.linalg.norm(A @ v - lam * v) < 1e-7
     s = maus_tpu_torch.MausSolver(gen.low_rank_svd_matrix(5, 4),
                                   maus_tpu_torch.ProblemType.SVD, device="cpu")
     assert s.knowledge.shape == (5, 4) and s.knowledge.effective_rank == 2

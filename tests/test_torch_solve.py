@@ -215,13 +215,13 @@ def test_duplicate_detection_divergence_from_reference():
 
 
 def test_rejects_what_is_not_ported():
-    """Hermitian eig is not ported yet; SVD is (its solver constructs), and
-    malformed operands raise ValueError."""
+    """SVD and Hermitian eig are ported (the SVD solver constructs, a
+    Hermitian eig runs), and malformed operands raise ValueError."""
     A, b = gen.well_conditioned_system(8)
     s = maus_tpu_torch.MausSolver(A, maus_tpu_torch.ProblemType.SVD, device="cpu")
     assert s.knowledge.effective_rank == 8
-    with pytest.raises(NotImplementedError):
-        maus_tpu_torch.eig(gen.hermitian_matrix(8), device="cpu")
+    rep = maus_tpu_torch.eig(gen.hermitian_matrix(8), device="cpu")
+    assert rep.knowledge.is_hermitian and rep.num_distinct == 8
     with pytest.raises(ValueError):
         maus_tpu_torch.solve(A[:, :6], b, device="cpu")
     with pytest.raises(ValueError):
