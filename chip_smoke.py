@@ -44,13 +44,17 @@ Phases, each printing its own lines:
      blocked LU's first trailing update at (8, 2048) and at ragged shapes,
      within 4·K·ε·max|a|·max|b|, with the times of the kernel, the plain
      version and torch.matmul (torch.baddbmm for the update);
-  8. P3/P4 (the batched LU) against the plain version: shifted Gram systems
-     of the SVD operand at (8, 2048), shifted eig matrices at (8, 4096),
-     (16, 256), ragged shapes and complex128, by the normwise backward error
-     ‖P·H − L·U‖_F/‖H‖_F ≤ 10·√N·ε, the normwise backward error of
-     torch.linalg.lu_solve on the kernel's factors, the pivots, and the
-     zero-pivot contract; with the times of the kernels, the plain versions
-     and torch.linalg.lu_factor;
+  8. P3/P4 (the batched LU) against the plain version: the cluster panel
+     kernel's cudaOccupancyMaxActiveClusters by cluster size and the size
+     chosen at (8, 2048) and (8, 4096), and the time of one cluster barrier;
+     shifted Gram systems of the SVD operand at (8, 2048), shifted eig
+     matrices at (8, 4096), (16, 256), ragged shapes and complex128, by the
+     normwise backward error ‖P·H − L·U‖_F/‖H‖_F ≤ 10·√N·ε, the normwise
+     backward error of torch.linalg.lu_solve on the kernel's factors, the
+     pivots, and the zero-pivot contract; the panel [0, 64) of (8, 4096) on
+     the cluster kernel and on the one-block kernel, each with the plain
+     version's pivots; with the times of the kernels, the plain versions
+     and torch.linalg.lu_factor, kernel and library in turns;
   9. maus_tpu_torch.svd of A = U·diag(σ)·Vᴴ at 4096×2048 (σ = 0.8^k for
      k < 16, then logspace(−2, −4)), 32 candidates, 16 targets, tol 1e-6:
      ≥ 16 distinct triplets, the 16 largest σ within 1e-8 of 0.8^k and at
@@ -71,10 +75,12 @@ Then a JSON line with the kernel table, and as the last line
 non-zero and prints no result line; so does a machine without CUDA.
 """
 import contextlib
+import ctypes
 import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -485,6 +491,29 @@ def check_lu(lu, H, gen, label, c=10.0):
     return out
 
 
+def p4_breakdown(lu, H):
+    """The device time of one lu.lu_factor(H) by kernel name, in ms, from
+    torch.profiler's trace of the card; "not measured" where the trace
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lu.lu_factor(H)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lu.lu_factor(H)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        m = re.search(r"(\w+_kernel)\b", ev.key)
+        if us > 0 and m:
+            out[m.group(1)] = round(out.get(m.group(1), 0.0) + us / 1e3, 4)
+    return out or "not measured"
+
+
 def svd_operand(m, n, top, seed, device):
     """A = U·diag(σ)·Vᴴ with U (m×n) and V (n×n) Haar (QR of complex
     Gaussians with the phases of R's diagonal fixed), σ = 0.8^k for k < top
@@ -577,13 +606,14 @@ def main():
     def reset_counts():
         residual.LAUNCHES = hess_solve.LAUNCHES = cgemm.LAUNCHES = 0
         hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
-        lu.LAUNCHES = lu.PANEL_LAUNCHES = 0
+        lu.LAUNCHES = lu.PANEL_LAUNCHES = lu.CLUSTER_PANEL_LAUNCHES = 0
         lanczos.CALLS = 0
 
     def counts():
         return dict(K1=residual.LAUNCHES, K2=hess_solve.LAUNCHES,
                     P1=hess_solve.LAUNCHES_V2, P2=hess_solve.LAUNCHES_V3,
-                    P3_panel=lu.PANEL_LAUNCHES, P4_blocked=lu.LAUNCHES,
+                    P3_panel=lu.PANEL_LAUNCHES, P3_cluster=lu.CLUSTER_PANEL_LAUNCHES,
+                    P4_blocked=lu.LAUNCHES,
                     K3=cgemm.LAUNCHES, lanczos_calls=lanczos.CALLS)
 
     dev = torch.device("cuda")
@@ -823,8 +853,10 @@ def main():
     eig_counts = counts()
     eig_launches = eig_counts["K2"]
     say(6, f"launches on the eig path: {eig_counts}")
-    if eig_counts["P4_blocked"] <= 0:
-        raise AssertionError("the eig finisher never ran the blocked LU (P4)")
+    if eig_counts["P4_blocked"] <= 0 or eig_counts["P3_cluster"] <= 0:
+        raise AssertionError(f"the eig finisher ran the blocked LU (P4) "
+                             f"{eig_counts['P4_blocked']} and the cluster panel "
+                             f"{eig_counts['P3_cluster']} times")
     say(6, f"first eig {EIG_N}²: {first}; peak device memory "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     warm = eig_and_check(maus_tpu_torch, hess_solve, A, "4096² eig")
@@ -913,13 +945,46 @@ def main():
     He = A_e.expand(LU_BATCH, EIG_N, EIG_N).clone()
     He.diagonal(dim1=-2, dim2=-1).sub_(lam[:, None])
     del A_e
+    # the cluster panel kernel's configuration at the finishers' panels: the
+    # card's cudaOccupancyMaxActiveClusters for every cluster size whose
+    # slice fits a CTA, and the size lu.choose_panel_kernel takes
+    def active(C, rows, width):
+        return lu.cluster_occupancy(C, rows, width, torch.complex64, dev)
+
+    chosen = {}
+    for N in (SVD_N, EIG_N):
+        occ = {C: active(C, -(-N // C), lu.NB) for C in lu.CLUSTER_SIZES
+               if lu.cluster_smem_bytes(-(-N // C), lu.NB, 8) <= lu.SMEM_LIMIT}
+        chosen[N] = lu.choose_panel_kernel(LU_BATCH, N, lu.NB, 8, active)
+        say(8, f"cluster panel at ({LU_BATCH}, {N}) complex64, 64 columns: "
+               f"cudaOccupancyMaxActiveClusters by cluster size {occ}; chosen "
+               f"C = {chosen[N]} ({-(-N // chosen[N])} rows a CTA)")
+    # one cluster barrier, timed alone at the chosen size: the floor of a
+    # column step of the cluster panel
+    lib = build.library()
+    iters = 10000
+
+    def barriers():
+        err = lib.maus_lu_cluster_barrier(
+            chosen[EIG_N], LU_BATCH, iters,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"cluster barrier launch failed: CUDA error {err}")
+
+    barrier_us = time_ms(barriers, reps=5) * 1e3 / iters
+    say(8, f"one cluster barrier ({LU_BATCH} clusters of {chosen[EIG_N]} CTAs of "
+           f"512 threads): {barrier_us:.4f} µs; a 64-column panel's latency "
+           f"floor (64 dependent steps) {64 * barrier_us:.2f} µs")
     for label, H in ((f"({LU_BATCH}, {SVD_N}) shifted Gram", Hg),
                      (f"({LU_BATCH}, {EIG_N}) shifted eig", He)):
         r = check_lu(lu, H, gen, label)
         N = H.shape[-1]
+        # kernel and library in turns, on the same inputs
         t_k = time_ms(lambda: lu.lu_factor(H), reps=3)
-        t_p = time_ms(lambda: lu.lu_factor_plain(H), reps=2 if N < 4096 else 1)
         t_l = time_ms(lambda: torch.linalg.lu_factor(H), reps=2)
+        t_k2 = time_ms(lambda: lu.lu_factor(H), reps=3)
+        t_l2 = time_ms(lambda: torch.linalg.lu_factor(H), reps=2)
+        t_p = time_ms(lambda: lu.lu_factor_plain(H), reps=2 if N < 4096 else 1)
         bnd, by = bound_ms(2 * LU_BATCH * N * N * 8, 8 / 3 * LU_BATCH * N ** 3,
                            FP32_FLOPS)
         lu_rows[N] = dict(r, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bnd,
@@ -929,36 +994,76 @@ def main():
                f"{r['solve_berr']:.3e} (bar {r['bar']:.3e}); pivots differing "
                f"{r['piv_mismatch']} (first differing column per matrix "
                f"{r['first_mismatch']}); max|Δ| {r['max_abs_err']:.3e}; kernel "
-               f"{t_k:.2f} ms, plain {t_p:.1f} ms, torch.linalg.lu_factor "
-               f"{t_l:.2f} ms, bound {bnd:.3f} ms ({by})")
-    del Hg
-    # the panel kernel on the first 64 columns of the (8, 4096) batch, the
-    # largest panel the finishers factor; repeated in place for the timing
-    # (each call factors the same 4096 × 64 block once more)
-    N, w = EIG_N, lu.NB
-    pk, pp = He.clone(), He.clone()
-    piv_k = torch.zeros((LU_BATCH, N), dtype=torch.int32, device=dev)
-    piv_p = piv_k.clone()
-    lu.lu_panel(pk, piv_k, 0, w)
-    lu.lu_panel_plain(pp, piv_p, 0, w)
-    torch.cuda.synchronize()
-    p_err = float((pk - pp).abs().max())
-    p_mism = int((piv_k != piv_p).sum())
-    if not (p_err <= 1e-4 * float(He.abs().max()) and p_mism == 0):
-        raise AssertionError(f"P3 panel [0, {w}) of ({LU_BATCH}, {N}): max|Δ| "
-                             f"{p_err:.3e}, pivots differing {p_mism}")
-    del pp
-    p_ms = time_ms(lambda: lu.lu_panel(pk, piv_k, 0, w), reps=5)
-    p_plain = time_ms(lambda: lu.lu_panel_plain(pk, piv_k, 0, w), reps=2)
-    panel = He[:, :, :w].contiguous()
-    p_lib = time_ms(lambda: torch.linalg.lu_factor(panel), reps=5)
-    p_flops = LU_BATCH * sum((N - k - 1) * (8 + 8 * (w - k - 1)) for k in range(w))
-    p_bound, p_by = bound_ms(2 * LU_BATCH * N * w * 8, p_flops, FP32_FLOPS)
-    say(8, f"P3 panel [0, {w}) of ({LU_BATCH}, {N}) complex64: max|Δ| {p_err:.3e}, "
-           f"pivots differing {p_mism}; kernel {p_ms:.3f} ms, plain {p_plain:.1f} ms, "
-           f"torch.linalg.lu_factor of the {N}×{w} panels {p_lib:.3f} ms, bound "
-           f"{p_bound:.4f} ms ({p_by})")
-    del He, pk, panel
+               f"{t_k:.3f} ms (again {t_k2:.3f} ms), torch.linalg.lu_factor "
+               f"{t_l:.3f} ms (again {t_l2:.3f} ms), plain {t_p:.1f} ms, bound "
+               f"{bnd:.3f} ms ({by})")
+        if not max(t_k, t_k2) < min(t_l, t_l2):
+            say(8, f"P4 at {label} does not beat torch.linalg.lu_factor")
+        say(8, f"P4 {label}: device time by kernel in one factorization "
+               f"(torch.profiler): {p4_breakdown(lu, H)}")
+    # the panel kernels on the first 64 columns of both batches, the largest
+    # panels the finishers factor; repeated in place for the timing (each
+    # call factors the same N × 64 block once more)
+    w = lu.NB
+    panel_rows = {}
+    for N, H in ((SVD_N, Hg), (EIG_N, He)):
+        pp = H.clone()
+        piv_p = torch.zeros((LU_BATCH, N), dtype=torch.int32, device=dev)
+        lu.lu_panel_plain(pp, piv_p, 0, w)
+        panel_out = {}
+        for name, cl in (("cluster", None), ("one-block", 0)):
+            pk = H.clone()
+            piv_k = torch.zeros_like(piv_p)
+            launches0 = lu.CLUSTER_PANEL_LAUNCHES, lu.PANEL_LAUNCHES
+            lu.lu_panel(pk, piv_k, 0, w, cluster=cl)
+            torch.cuda.synchronize()
+            took = (lu.CLUSTER_PANEL_LAUNCHES - launches0[0],
+                    lu.PANEL_LAUNCHES - launches0[1])
+            if took != ((1, 0) if cl is None else (0, 1)):
+                raise AssertionError(f"P3 panel [0, {w}) of ({LU_BATCH}, {N}) took "
+                                     f"(cluster, one-block) launches {took}")
+            p_err = float((pk - pp).abs().max())
+            p_mism = int((piv_k != piv_p).sum())
+            if not (p_err <= 1e-4 * float(H.abs().max()) and p_mism == 0):
+                raise AssertionError(f"P3 {name} panel [0, {w}) of ({LU_BATCH}, {N}): "
+                                     f"max|Δ| {p_err:.3e}, pivots differing {p_mism}")
+            panel_out[name] = (pk, piv_k, cl, p_err)
+        del pp
+        panel = H[:, :, :w].contiguous()
+        turns = {"cluster": [], "one-block": [], "library": []}
+        for _ in range(2):
+            for name in ("cluster", "one-block"):
+                pk, piv_k, cl, _ = panel_out[name]
+                turns[name].append(time_ms(
+                    lambda: lu.lu_panel(pk, piv_k, 0, w, cluster=cl), reps=5))
+            turns["library"].append(time_ms(lambda: torch.linalg.lu_factor(panel),
+                                            reps=5))
+        pk, piv_k, _, p_err = panel_out["cluster"]
+        p_plain = time_ms(lambda: lu.lu_panel_plain(pk, piv_k, 0, w), reps=2)
+        by_size = {C: time_ms(lambda: lu.lu_panel(pk, piv_k, 0, w, cluster=C), reps=5)
+                   for C in lu.CLUSTER_SIZES
+                   if lu.cluster_smem_bytes(-(-N // C), w, 8) <= lu.SMEM_LIMIT}
+        p_flops = LU_BATCH * sum((N - k - 1) * (8 + 8 * (w - k - 1)) for k in range(w))
+        p_bound, p_by = bound_ms(2 * LU_BATCH * N * w * 8, p_flops, FP32_FLOPS)
+        panel_rows[N] = dict(ms=turns["cluster"][0], block_ms=turns["one-block"][0],
+                             library_ms=turns["library"][0], plain_ms=p_plain,
+                             bound_ms=p_bound, bound_by=p_by, max_abs_err=p_err)
+        say(8, f"P3 panel [0, {w}) of ({LU_BATCH}, {N}) complex64: max|Δ| cluster "
+               f"{p_err:.3e}, one-block {panel_out['one-block'][3]:.3e}, pivots "
+               f"differing 0; in turns, cluster kernel (C = {chosen[N]}) "
+               f"{[round(t, 4) for t in turns['cluster']]} ms, one-block kernel "
+               f"{[round(t, 4) for t in turns['one-block']]} ms, "
+               f"torch.linalg.lu_factor of the {N}×{w} panels "
+               f"{[round(t, 4) for t in turns['library']]} ms; plain {p_plain:.1f} ms; "
+               f"bound {p_bound:.4f} ms ({p_by}), latency floor "
+               f"{64 * barrier_us / 1e3:.4f} ms (64 barriers); cluster kernel by "
+               f"cluster size { {C: round(t, 4) for C, t in by_size.items()} } ms")
+        if not (max(turns["cluster"]) < min(turns["library"]) and
+                5 * max(turns["cluster"]) <= min(turns["one-block"])):
+            say(8, f"the cluster panel at ({LU_BATCH}, {N}) is not both faster than "
+                   f"torch.linalg.lu_factor and 5× faster than the one-block kernel")
+        del pk, panel, panel_out
+    del Hg, He
     torch.cuda.empty_cache()
     # P3's own measured range: the whole unblocked LU (one panel over all N)
     K, N = 16, 256
@@ -1017,7 +1122,7 @@ def main():
     first = svd_and_check(maus_tpu_torch, A_svd, sig, f"{SVD_M}×{SVD_N} svd")
     svd_counts = counts()
     say(9, f"launches on the SVD path: {svd_counts}")
-    for name in ("P3_panel", "P4_blocked", "K3"):
+    for name in ("P3_cluster", "P4_blocked", "K3"):
         if svd_counts[name] <= 0:
             raise AssertionError(f"the SVD path launched {name} {svd_counts[name]} "
                                  f"times")
@@ -1046,9 +1151,11 @@ def main():
                           hermitian=True)
     herm_counts = counts()
     say(10, f"launches on the Hermitian (Lanczos) eig path: {herm_counts}")
-    if herm_counts["P4_blocked"] <= 0 or herm_counts["lanczos_calls"] <= 0:
+    if herm_counts["P4_blocked"] <= 0 or herm_counts["lanczos_calls"] <= 0 or \
+            herm_counts["P3_cluster"] <= 0:
         raise AssertionError(f"the {EIG_N}² Hermitian eig ran P4 "
-                             f"{herm_counts['P4_blocked']} and Lanczos "
+                             f"{herm_counts['P4_blocked']}, the cluster panel "
+                             f"{herm_counts['P3_cluster']} and Lanczos "
                              f"{herm_counts['lanczos_calls']} times")
     say(10, f"first Hermitian eig {EIG_N}²: {first}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1074,11 +1181,13 @@ def main():
     small = eig_and_check(maus_tpu_torch, hess_solve, A,
                           f"{HERM_SMALL_N}² Hermitian eig", hermitian=True)
     small_counts = counts()
-    if small_counts["lanczos_calls"] != 0 or small_counts["P4_blocked"] <= 0:
+    if small_counts["lanczos_calls"] != 0 or small_counts["P4_blocked"] <= 0 or \
+            small_counts["P3_cluster"] <= 0:
         raise AssertionError(f"the {HERM_SMALL_N}² Hermitian eig called Lanczos "
                              f"{small_counts['lanczos_calls']} times (the shared "
-                             f"eigh takes N ≤ eigh_max_n) and P4 "
-                             f"{small_counts['P4_blocked']} times")
+                             f"eigh takes N ≤ eigh_max_n), P4 "
+                             f"{small_counts['P4_blocked']} and the cluster panel "
+                             f"{small_counts['P3_cluster']} times")
     say(11, f"launches on the Hermitian (shared eigh) eig path: {small_counts}")
     say(11, f"{HERM_SMALL_N}² Hermitian eig (shared eigh): {small['num_distinct']} "
             f"distinct pairs (target {EIG_TARGETS}) in {small['iterations']} "
@@ -1136,9 +1245,12 @@ def main():
         "library_ms": u_lib}, {
         "name": "lu_panel", "route": "cuda", "source": "maus_tpu_torch/csrc/lu.cu",
         "replaces": "benchmarks/parked/pallas_lu.py:103",
-        "launches": svd_counts["P3_panel"], "max_abs_err": p_err, "ms": p_ms,
-        "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
-        "library_ms": p_lib}, {
+        "launches": svd_counts["P3_cluster"],
+        "max_abs_err": panel_rows[EIG_N]["max_abs_err"],
+        "ms": panel_rows[EIG_N]["ms"], "plain_ms": panel_rows[EIG_N]["plain_ms"],
+        "bound_ms": panel_rows[EIG_N]["bound_ms"],
+        "bound_by": panel_rows[EIG_N]["bound_by"],
+        "library_ms": panel_rows[EIG_N]["library_ms"]}, {
         "name": "lu_factor_blocked", "route": "cuda",
         "source": "maus_tpu_torch/csrc/lu.cu",
         "replaces": "benchmarks/parked/pallas_lu_blocked.py:169",
@@ -1147,7 +1259,16 @@ def main():
         "plain_ms": lu_rows[SVD_N]["plain_ms"],
         "bound_ms": lu_rows[SVD_N]["bound_ms"],
         "bound_by": lu_rows[SVD_N]["bound_by"],
-        "library_ms": lu_rows[SVD_N]["library_ms"]}]}), flush=True)
+        "library_ms": lu_rows[SVD_N]["library_ms"]}, {
+        "name": "lu_factor_blocked_n4096", "route": "cuda",
+        "source": "maus_tpu_torch/csrc/lu.cu",
+        "replaces": "benchmarks/parked/pallas_lu_blocked.py:169",
+        "launches": eig_counts["P4_blocked"],
+        "max_abs_err": lu_rows[EIG_N]["max_abs_err"], "ms": lu_rows[EIG_N]["ms"],
+        "plain_ms": lu_rows[EIG_N]["plain_ms"],
+        "bound_ms": lu_rows[EIG_N]["bound_ms"],
+        "bound_by": lu_rows[EIG_N]["bound_by"],
+        "library_ms": lu_rows[EIG_N]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -108,8 +108,10 @@ def library() -> ctypes.CDLL:
                     ("maus_cgemm", [ptr] * 3 + [i32] * 5 + [i64] * 6
                      + [f64] * 4 + [ptr]),
                     ("maus_lu_panel", [ptr, ptr] + [i32] * 5 + [ptr]),
-                    ("maus_lu_swap", [ptr, ptr] + [i32] * 5 + [ptr]),
-                    ("maus_lu_trsm", [ptr] + [i32] * 5 + [ptr])):
+                    ("maus_lu_panel_cluster", [ptr, ptr] + [i32] * 6 + [ptr]),
+                    ("maus_lu_cluster_occupancy", [i32] * 4 + [ptr]),
+                    ("maus_lu_factor", [ptr, ptr] + [i32] * 4 + [ptr, ptr]),
+                    ("maus_lu_cluster_barrier", [i32] * 3 + [ptr])):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int

@@ -2,16 +2,26 @@
 
 Replace ``benchmarks/parked/pallas_lu.py::lu_factor_batched`` (P3) and
 ``benchmarks/parked/pallas_lu_blocked.py::lu_factor_batched_blocked`` (P4).
-The CUDA source is ``maus_tpu_torch/csrc/lu.cu`` (design and bound in its
+The CUDA source is ``maus_tpu_torch/csrc/lu.cu`` (design and bounds in its
 header). :func:`lu_panel` factors the columns [s, e) of a batch in place — with
 [s, e) = [0, N) it is the whole unblocked LU, P3's counterpart.
 :func:`lu_factor` is the blocked right-looking LU, P4's counterpart: per
 panel of ``NB`` columns (the last one ragged) the panel factorization, the
-panel's row interchanges on the other columns, the unit-lower solve for U₁₂
-and the trailing update A₂₂ −= L₂₁·U₁₂ by kernel K3
-(:func:`~maus_tpu_torch.ops.kernels.cgemm.cgemm_update`). The result is
+panel's row interchanges on the other columns fused with the unit-lower solve
+for U₁₂, and the trailing update A₂₂ −= L₂₁·U₁₂ by kernel K3, all launched by
+one C function (``maus_lu_factor``) on the current stream. The result is
 ``(lu, piv)`` exactly as ``torch.linalg.lu_factor`` gives it (packed LU,
 int32 1-based pivots), so ``torch.linalg.lu_solve`` consumes it unchanged.
+
+Two panel kernels: the cluster kernel keeps a matrix's panel in the shared
+memory of a cluster of C CTAs (C ≤ 16) for the whole panel; the one-block
+kernel keeps it in global memory. :func:`choose_panel_kernel` picks, from the
+shape alone and the card's ``cudaOccupancyMaxActiveClusters``, before any
+launch: a panel of at most ``CLUSTER_MAX_WIDTH`` columns whose rows, split
+over C CTAs, fit a CTA's shared memory (``SMEM_LIMIT``) takes the cluster
+kernel, with the C of fewest waves of clusters and then fewest rows per CTA;
+anything else (wider panels, complex128 at N − s > 3520, complex64 at
+N − s > 7024) takes the one-block kernel.
 
 The pivot of a column is the row of largest |a|² (the first on ties), as in
 the JAX kernels; LAPACK, behind ``torch.linalg.lu_factor`` and
@@ -22,9 +32,10 @@ solve against the factors comes back non-finite.
 The wrappers launch the kernels for CUDA tensors and take the plain versions
 (:func:`lu_panel_plain`, :func:`lu_factor_plain`, the same algorithm in torch
 operations) only for tensors on the CPU; on a CUDA tensor they launch or
-raise. ``PANEL_LAUNCHES`` counts panel-kernel launches, ``LAUNCHES`` the
-blocked factorizations run on the card (each launches the panel, swap and
-solve kernels and K3 per panel).
+raise. ``PANEL_LAUNCHES`` counts one-block panel launches,
+``CLUSTER_PANEL_LAUNCHES`` cluster panel launches, ``LAUNCHES`` the blocked
+factorizations run on the card; each of those also adds its K3 launches to
+``cgemm.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -34,12 +45,60 @@ from . import cgemm as cgemm_mod
 
 LAUNCHES = 0
 PANEL_LAUNCHES = 0
+CLUSTER_PANEL_LAUNCHES = 0
 
 # Panel width of the blocked LU: the panel's column steps are a latency-bound
 # chain whatever its width, while each trailing update reads and writes the
 # whole trailing matrix, so wider panels mean fewer of those passes. The
 # kernel's triangular solve holds the panel's L₁₁ in shared memory, up to 64.
 NB = 64
+
+# The cluster panel kernel: cluster sizes it may take (16 is past the
+# portable 8), the widest panel (a warp's 32 lanes own two columns each), and
+# the dynamic shared memory a CTA may hold (227 KB on sm_90, less 2 KB for
+# the kernel's static arrays: 1.3 KB at complex128).
+CLUSTER_SIZES = (16, 14, 12, 10, 8, 4, 2, 1)
+CLUSTER_MAX_WIDTH = 64
+SMEM_LIMIT = 227 * 1024 - 2048
+
+
+def cluster_smem_bytes(rows_per_cta: int, width: int, itemsize: int) -> int:
+    """Dynamic shared memory of a cluster-kernel CTA: its rows of the panel
+    (``itemsize`` bytes per complex entry, one entry of padding per row)
+    and one row index per row."""
+    return rows_per_cta * ((width + 1) * itemsize + 4)
+
+
+def choose_panel_kernel(K: int, n_rows: int, width: int, itemsize: int,
+                        active_clusters) -> int:
+    """The panel kernel for K matrices whose panel has ``n_rows`` rows (N − s)
+    and ``width`` columns of ``itemsize``-byte entries: a cluster size C > 0
+    for the cluster kernel, or 0 for the one-block kernel. A C qualifies if
+    its ⌈n_rows/C⌉ rows fit a CTA (``SMEM_LIMIT``) and
+    ``active_clusters(C, rows_per_cta, width)`` (the card's
+    ``cudaOccupancyMaxActiveClusters``) is positive; of those, the fewest
+    waves ⌈K/active⌉ × rows per CTA wins (per column step a CTA's time grows
+    with its rows), ties to the larger C. A pure function of its arguments."""
+    if width > CLUSTER_MAX_WIDTH:
+        return 0
+    best, best_cost = 0, None
+    for C in CLUSTER_SIZES:
+        rows = -(-n_rows // C)
+        if cluster_smem_bytes(rows, width, itemsize) > SMEM_LIMIT:
+            continue
+        active = active_clusters(C, rows, width)
+        if active <= 0:
+            continue
+        cost = -(-K // active) * rows
+        if best_cost is None or cost < best_cost:
+            best, best_cost = C, cost
+    return best
+
+
+def panel_routes(K: int, N: int, itemsize: int, active_clusters, nb: int = NB):
+    """:func:`choose_panel_kernel` for every panel of the blocked LU."""
+    return [choose_panel_kernel(K, N - s, min(nb, N - s), itemsize, active_clusters)
+            for s in range(0, N, nb)]
 
 
 def _cdiv_real(z: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -133,37 +192,123 @@ def _check_panel_args(lu: torch.Tensor, piv: torch.Tensor, s: int, e: int) -> No
         raise ValueError(f"bad panel [{s}, {e}) of N = {N}")
 
 
-def _launch(fn, *args) -> None:
+def _stream(t: torch.Tensor):
     import ctypes
 
-    lu = args[0]
-    stream = torch.cuda.current_stream(lu.device).cuda_stream
-    ptrs = [ctypes.c_void_p(a.data_ptr()) for a in args if isinstance(a, torch.Tensor)]
-    ints = [a for a in args if not isinstance(a, torch.Tensor)]
-    with torch.cuda.device(lu.device):
-        err = fn(*ptrs, int(lu.dtype == torch.complex128), lu.shape[0],
-                 lu.shape[1], *ints, ctypes.c_void_p(stream))
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor):
+    import ctypes
+
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
-def lu_panel(lu: torch.Tensor, piv: torch.Tensor, s: int, e: int) -> None:
+_OCCUPANCY: dict = {}
+
+
+def cluster_occupancy(C: int, rows_per_cta: int, width: int, dtype: torch.dtype,
+                      device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster panel kernel with C
+    CTAs of ``rows_per_cta`` rows of a ``width``-column panel each, on a CUDA
+    device (cached)."""
+    import ctypes
+
+    from .build import library
+
+    device = torch.device(device)
+    key = (device.index, C, rows_per_cta, width, dtype)
+    if key not in _OCCUPANCY:
+        active = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = library().maus_lu_cluster_occupancy(
+                int(dtype == torch.complex128), C, rows_per_cta, width,
+                ctypes.byref(active))
+        _raise_on(err, f"cudaOccupancyMaxActiveClusters (C = {C})")
+        _OCCUPANCY[key] = active.value
+    return _OCCUPANCY[key]
+
+
+def _active_clusters(lu: torch.Tensor):
+    """``active_clusters(C, rows_per_cta, width)`` for
+    :func:`choose_panel_kernel` on ``lu``'s card."""
+    return lambda C, rows, width: cluster_occupancy(C, rows, width, lu.dtype,
+                                                    lu.device)
+
+
+_ROUTES: dict = {}
+
+
+def _factor_routes(lu: torch.Tensor) -> list:
+    """:func:`panel_routes` for ``lu``'s shape on its card (cached)."""
+    K, N, _ = lu.shape
+    key = (lu.device.index, K, N, lu.dtype)
+    if key not in _ROUTES:
+        _ROUTES[key] = panel_routes(K, N, lu.element_size(), _active_clusters(lu))
+    return _ROUTES[key]
+
+
+def lu_panel(lu: torch.Tensor, piv: torch.Tensor, s: int, e: int,
+             cluster: int | None = None) -> None:
     """Factor columns [s, e) of rows [s, N) of the contiguous (K, N, N)
     complex batch ``lu`` in place, with partial pivoting; the pivots go to
     ``piv[:, s:e]`` (int32, 1-based) and the row swaps touch the panel's
     columns only. The kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    global PANEL_LAUNCHES
+    tensor. ``cluster`` picks the kernel on the card: None by
+    :func:`choose_panel_kernel`, 0 the one-block kernel, C > 0 the cluster
+    kernel with C CTAs per matrix (ValueError if the panel does not fit)."""
+    global PANEL_LAUNCHES, CLUSTER_PANEL_LAUNCHES
     _check_panel_args(lu, piv, s, e)
+    K, N, _ = lu.shape
+    w = e - s
+    if cluster and (cluster not in CLUSTER_SIZES or w > CLUSTER_MAX_WIDTH or
+                    cluster_smem_bytes(-(-(N - s) // cluster), w,
+                                       lu.element_size()) > SMEM_LIMIT):
+        raise ValueError(f"panel [{s}, {e}) of N = {N} {lu.dtype} does not fit "
+                         f"the cluster kernel at C = {cluster}")
     if lu.device.type == "cpu":
         return lu_panel_plain(lu, piv, s, e)
     if lu.device.type != "cuda":
         raise ValueError(f"no lu_panel for device {lu.device}")
     from .build import library
 
-    _launch(library().maus_lu_panel, lu, piv, s, e)
-    PANEL_LAUNCHES += 1
+    if cluster is None:
+        cluster = choose_panel_kernel(K, N - s, w, lu.element_size(),
+                                      _active_clusters(lu))
+    if K * max(cluster, 1) >= 2 ** 31:
+        raise ValueError(f"batch {K} × cluster {cluster} exceeds the grid")
+    lib = library()
+    c128 = int(lu.dtype == torch.complex128)
+    with torch.cuda.device(lu.device):
+        if cluster:
+            err = lib.maus_lu_panel_cluster(_ptr(lu), _ptr(piv), c128, K, N, s, e,
+                                            cluster, _stream(lu))
+        else:
+            err = lib.maus_lu_panel(_ptr(lu), _ptr(piv), c128, K, N, s, e,
+                                    _stream(lu))
+    _raise_on(err, "lu_panel kernel launch")
+    if cluster:
+        CLUSTER_PANEL_LAUNCHES += 1
+    else:
+        PANEL_LAUNCHES += 1
     return None
+
+
+def _count_factor(routes) -> None:
+    """Count one blocked factorization run by ``maus_lu_factor`` with the
+    route table ``routes``: its panel launches on the kernel each route
+    names, and one K3 trailing update per panel but the last."""
+    global LAUNCHES, PANEL_LAUNCHES, CLUSTER_PANEL_LAUNCHES
+    LAUNCHES += 1
+    clustered = sum(1 for c in routes if c)
+    CLUSTER_PANEL_LAUNCHES += clustered
+    PANEL_LAUNCHES += len(routes) - clustered
+    cgemm_mod.LAUNCHES += len(routes) - 1
 
 
 def lu_factor(H: torch.Tensor):
@@ -171,12 +316,13 @@ def lu_factor(H: torch.Tensor):
     complex128 tensor (any K, N ≥ 1; H is not modified). Returns
     ``(lu, piv)`` in ``torch.linalg.lu_factor``'s layout: the kernels on a
     CUDA tensor, :func:`lu_factor_plain` on a CPU tensor."""
-    global LAUNCHES
     _check_batch(H)
     if H.device.type == "cpu":
         return lu_factor_plain(H)
     if H.device.type != "cuda":
         raise ValueError(f"no lu_factor for device {H.device}")
+    import ctypes
+
     from .build import library
 
     lib = library()
@@ -185,17 +331,15 @@ def lu_factor(H: torch.Tensor):
         memory_format=torch.contiguous_format)
     K, N, _ = lu.shape
     if K > 65535:
-        raise ValueError(f"batch {K} exceeds the swap and solve kernels' grid "
+        raise ValueError(f"batch {K} exceeds the solve and update kernels' grid "
                          f"(K <= 65535)")
     piv = torch.empty((K, N), dtype=torch.int32, device=lu.device)
-    for s in range(0, N, NB):
-        e = min(s + NB, N)
-        lu_panel(lu, piv, s, e)
-        if e - s < N:
-            _launch(lib.maus_lu_swap, lu, piv, s, e)
-        if e < N:
-            _launch(lib.maus_lu_trsm, lu, s, e)
-            cgemm_mod.cgemm_update(lu[:, e:, e:], lu[:, e:, s:e], lu[:, s:e, e:],
-                                   -1.0, 1.0)
-    LAUNCHES += 1
+    routes = _factor_routes(lu)
+    table = (ctypes.c_int * len(routes))(*routes)
+    with torch.cuda.device(lu.device):
+        err = lib.maus_lu_factor(_ptr(lu), _ptr(piv),
+                                 int(lu.dtype == torch.complex128), K, N, NB, table,
+                                 _stream(lu))
+    _raise_on(err, "lu_factor kernel launch")
+    _count_factor(routes)
     return (lu[0], piv[0]) if squeeze else (lu, piv)

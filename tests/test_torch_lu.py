@@ -81,9 +81,10 @@ def test_plain_matches_interpret_mode_unblocked_pallas(k, n):
     H = _batch(k, n, seed=n, shift=2.0)
     lu_j, piv_j = _parked("pallas_lu").lu_factor_batched(jnp.asarray(H),
                                                           interpret=True)
-    launches = klu.LAUNCHES, klu.PANEL_LAUNCHES
+    launches = klu.LAUNCHES, klu.PANEL_LAUNCHES, klu.CLUSTER_PANEL_LAUNCHES
     lu_t, piv_t = klu.lu_factor(torch.from_numpy(H))
-    assert (klu.LAUNCHES, klu.PANEL_LAUNCHES) == launches   # plain: no count
+    assert (klu.LAUNCHES, klu.PANEL_LAUNCHES,
+            klu.CLUSTER_PANEL_LAUNCHES) == launches   # plain: no count
     assert lu_t.dtype == torch.complex64 and piv_t.dtype == torch.int32
     np.testing.assert_array_equal(piv_t.numpy(), np.asarray(piv_j) + 1)
     assert np.abs(lu_t.numpy() - np.asarray(lu_j)).max() <= 1e-4 * np.abs(H).max()
@@ -210,6 +211,118 @@ def test_lu_panel_rejects():
             klu.lu_panel(*args)
 
 
+# ---- the panel kernel's choice and the launch bookkeeping (pure Python) ----
+
+C64, C128 = 8, 16    # bytes of a complex64 and a complex128 entry
+
+
+def _everywhere(n):
+    """``active_clusters`` of a card that holds ``n`` clusters of any size."""
+    return lambda C, rows, width: n
+
+
+@pytest.mark.parametrize("K,n_rows,width,itemsize,want", [
+    (8, 4096, 64, C64, 16),      # the eig finisher's first panel: 128 KB a CTA
+    (8, 2048, 64, C64, 16),      # the SVD finisher's first panel
+    (8, 64, 64, C64, 16),        # the last panel of a finisher batch
+    (1, 7024, 64, C64, 16),      # 439 rows a CTA: just inside the fit
+    (1, 7025, 64, C64, 0),       # 440 rows: just outside, the one-block kernel
+    (1, 3520, 64, C128, 16),     # complex128: 220 rows just inside
+    (1, 3521, 64, C128, 0),      # 221 rows just outside
+    (8, 4096, 64, C128, 0),      # complex128 at the eig shape: one-block kernel
+    (3, 100, 65, C64, 0),        # wider than a cluster kernel's panel
+    (3, 256, 256, C64, 0),       # the whole unblocked LU of a 256² matrix
+    (1, 1, 1, C64, 16),
+])
+def test_choose_panel_kernel_by_shape(K, n_rows, width, itemsize, want):
+    assert klu.choose_panel_kernel(K, n_rows, width, itemsize, _everywhere(8)) == want
+
+
+def test_choose_panel_kernel_weighs_waves_against_rows():
+    """Seven clusters of 16 fit the card: the batch of 8 would run in two
+    waves of 256 rows a CTA, so 14 CTAs of 293 rows in one wave win; with
+    no cluster of 16 resident, 14 again; with seven clusters of any size
+    (the H100's count past C = 8 at 4096 rows), two waves of 16; with
+    nothing resident, the one-block kernel. The occupancy is asked with
+    the rows and width."""
+    asked = []
+
+    def seven_of_16(C, rows, width):
+        asked.append((C, rows, width))
+        return 7 if C == 16 else 8
+    assert klu.choose_panel_kernel(8, 4096, 64, C64, seven_of_16) == 14
+    assert (16, 256, 64) in asked and (14, 293, 64) in asked
+    assert klu.choose_panel_kernel(8, 4096, 64, C64,
+                                   lambda C, r, w: 0 if C == 16 else 8) == 14
+    assert klu.choose_panel_kernel(8, 4096, 64, C64, _everywhere(7)) == 16
+    assert klu.choose_panel_kernel(8, 4096, 64, C64, _everywhere(0)) == 0
+    # a batch of 1 fits in one wave anywhere: the most CTAs, the fewest rows
+    assert klu.choose_panel_kernel(1, 4096, 64, C64, seven_of_16) == 16
+
+
+def test_cluster_smem_bytes_and_limit():
+    assert klu.cluster_smem_bytes(256, 64, C64) == 256 * (65 * 8 + 4)
+    assert klu.cluster_smem_bytes(439, 64, C64) <= klu.SMEM_LIMIT < \
+        klu.cluster_smem_bytes(440, 64, C64)
+    assert klu.SMEM_LIMIT <= 232448   # sm_90's opt-in shared memory per block
+
+
+@pytest.mark.parametrize("N,widths", [(1, [1]), (64, [64]), (100, [64, 36]),
+                                      (4096, [64] * 64), (2047, [64] * 31 + [63])])
+def test_panel_routes_cover_every_panel(N, widths):
+    """One route per panel, each asked with that panel's rows and width."""
+    asked = []
+
+    def active(C, rows, width):
+        asked.append(width)
+        return 4
+    routes = klu.panel_routes(8, N, C64, active)
+    assert len(routes) == len(widths) == -(-N // klu.NB)
+    assert all(r in klu.CLUSTER_SIZES for r in routes)
+    assert sorted(set(asked)) == sorted(set(widths))
+
+
+def test_launch_bookkeeping_of_one_factorization(monkeypatch):
+    """``_count_factor``: one factorization, each panel on the kernel its
+    route names, one K3 update per panel but the last."""
+    from maus_tpu_torch.ops.kernels import cgemm
+
+    for name in ("LAUNCHES", "PANEL_LAUNCHES", "CLUSTER_PANEL_LAUNCHES"):
+        monkeypatch.setattr(klu, name, 0)
+    monkeypatch.setattr(cgemm, "LAUNCHES", 0)
+    klu._count_factor([16, 16, 12, 0])
+    assert (klu.LAUNCHES, klu.CLUSTER_PANEL_LAUNCHES, klu.PANEL_LAUNCHES,
+            cgemm.LAUNCHES) == (1, 3, 1, 3)
+    klu._count_factor([0])
+    assert (klu.LAUNCHES, klu.CLUSTER_PANEL_LAUNCHES, klu.PANEL_LAUNCHES,
+            cgemm.LAUNCHES) == (2, 3, 2, 3)
+
+
+@pytest.mark.parametrize("args", [(0, 64, 3), (0, 64, 32), (0, 65, 16),
+                                  (0, 64, 16, torch.complex128, 4096)])
+def test_lu_panel_rejects_a_cluster_that_does_not_fit(args):
+    """An explicit cluster size is checked against the shape before any
+    device dispatch: a size the kernel does not take, a panel wider than 64
+    columns, a slice past a CTA's shared memory."""
+    s, e, C, *rest = args
+    dtype, n = rest if rest else (torch.complex64, 128)
+    lu = torch.zeros((1, n, n), dtype=dtype)
+    piv = torch.zeros((1, n), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        klu.lu_panel(lu, piv, s, e, cluster=C)
+
+
+def test_lu_panel_with_a_cluster_size_runs_the_plain_version_on_cpu():
+    H = _batch(2, 70, seed=3)
+    a = torch.from_numpy(H.copy())
+    b = torch.from_numpy(H.copy())
+    pa = torch.zeros((2, 70), dtype=torch.int32)
+    pb = pa.clone()
+    klu.lu_panel(a, pa, 0, 64, cluster=16)
+    klu.lu_panel_plain(b, pb, 0, 64)
+    assert torch.equal(a, b) and torch.equal(pa, pb)
+
+
 def _card_batch(k, n, dtype):
     g = torch.Generator(device="cuda")
     g.manual_seed(k * 1000 + n)
@@ -225,11 +338,12 @@ def test_kernel_matches_plain_on_card(dtype, k, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
     H = _card_batch(k, n, dtype)
-    launches = klu.LAUNCHES, klu.PANEL_LAUNCHES
+    launches = klu.LAUNCHES, klu.PANEL_LAUNCHES + klu.CLUSTER_PANEL_LAUNCHES
     lu_k, piv_k = klu.lu_factor(H)
     torch.cuda.synchronize()
     assert klu.LAUNCHES == launches[0] + 1
-    assert klu.PANEL_LAUNCHES == launches[1] + (n + klu.NB - 1) // klu.NB
+    assert klu.PANEL_LAUNCHES + klu.CLUSTER_PANEL_LAUNCHES == \
+        launches[1] + (n + klu.NB - 1) // klu.NB
     lu_p, piv_p = klu.lu_factor_plain(H)
     eps = EPS32 if dtype == torch.complex64 else EPS64
     Hh = H.cpu().numpy()
@@ -267,5 +381,127 @@ def test_kernel_zero_pivot_on_card():
     H[:, 0, 1] = 1.0
     lu_k, piv_k = klu.lu_factor(H)
     x = torch.linalg.lu_solve(lu_k, piv_k, torch.ones((2, 5, 1), dtype=H.dtype,
+                                                      device="cuda"))
+    assert not torch.isfinite(torch.view_as_real(x)).all(dim=-1).all(dim=(1, 2)).any()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
+
+
+def _panel_vs_plain(H, s, e, cluster=None):
+    """The panel on the card (``cluster`` as for ``lu_panel``) and the plain
+    version on copies of H; returns (max|Δ|, pivots differing, the counts
+    of one-block and cluster launches it made)."""
+    k, n, _ = H.shape
+    a, b = H.clone(), H.clone()
+    pa = torch.zeros((k, n), dtype=torch.int32, device=H.device)
+    pb = pa.clone()
+    before = klu.PANEL_LAUNCHES, klu.CLUSTER_PANEL_LAUNCHES
+    klu.lu_panel(a, pa, s, e, cluster=cluster)
+    klu.lu_panel_plain(b, pb, s, e)
+    torch.cuda.synchronize()
+    return (float((a - b).abs().max()), int((pa != pb).sum()),
+            (klu.PANEL_LAUNCHES - before[0], klu.CLUSTER_PANEL_LAUNCHES - before[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(8, 2048), (8, 4096)])
+def test_cluster_panel_at_the_finisher_shapes(k, n):
+    """The finishers' first 64-column panel: the cluster kernel, the plain
+    version's pivots, entries within 1e-4·max|H|."""
+    _need_card()
+    H = _card_batch(k, n, torch.complex64)
+    err, mism, (block, cluster) = _panel_vs_plain(H, 0, 64)
+    assert (block, cluster) == (0, 1)
+    assert mism == 0 and err <= 1e-4 * float(H.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,cluster_kernel", [
+    (7024, torch.complex64, True), (7025, torch.complex64, False),
+    (3520, torch.complex128, True), (3521, torch.complex128, False)])
+def test_panel_kernel_choice_at_the_shared_memory_boundary(n, dtype, cluster_kernel):
+    """One matrix just inside and just outside the cluster kernel's
+    shared-memory fit, complex64 and complex128: the kernel the pure
+    choice names runs, and agrees with the plain version."""
+    _need_card()
+    H = _card_batch(1, n, dtype)
+    err, mism, (block, cluster) = _panel_vs_plain(H, 0, 64)
+    assert (block, cluster) == ((0, 1) if cluster_kernel else (1, 0))
+    tol = 1e-4 if dtype == torch.complex64 else 1e-12
+    assert mism == 0 and err <= tol * float(H.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", klu.CLUSTER_SIZES)
+@pytest.mark.parametrize("k", [1, 3])
+def test_cluster_panel_every_cluster_size(k, cluster):
+    _need_card()
+    H = _card_batch(k, 300, torch.complex64)
+    for s, e in ((0, 64), (100, 137), (290, 300)):
+        err, mism, (block, clustered) = _panel_vs_plain(H, s, e, cluster)
+        assert (block, clustered) == (0, 1)
+        assert mism == 0 and err <= 1e-4 * float(H.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [129, 1000, 2047])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_cluster_panel_and_factor_on_ragged_shapes(n, dtype):
+    """Ragged N: the first, a middle and the ragged last panel against the
+    plain version, then the whole blocked LU by its backward error
+    ≤ 10·√N·ε."""
+    _need_card()
+    H = _card_batch(2, n, dtype)
+    last = (n - 1) // klu.NB * klu.NB
+    tol = 1e-4 if dtype == torch.complex64 else 1e-12
+    for s, e in ((0, 64), (n // 2, n // 2 + 64), (last, n)):
+        err, mism, _ = _panel_vs_plain(H, s, e)
+        assert mism == 0 and err <= tol * float(H.abs().max())
+    lu_k, piv_k = klu.lu_factor(H)
+    eps = EPS32 if dtype == torch.complex64 else EPS64
+    assert _backward_error(H.cpu().numpy(), lu_k.cpu().numpy(), piv_k.cpu().numpy()) \
+        <= 10 * np.sqrt(n) * eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1, 512), (3, 512), (8, 1024)])
+def test_factor_on_card_backward_error_and_counts(k, n):
+    """The blocked LU of ``maus_lu_factor``: backward error ≤ 10·√N·ε, H unchanged,
+    one factorization, ⌈N/NB⌉ cluster panels and ⌈N/NB⌉ − 1 K3 updates."""
+    from maus_tpu_torch.ops.kernels import cgemm
+
+    _need_card()
+    H = _card_batch(k, n, torch.complex64)
+    H0 = H.clone()
+    before = (klu.LAUNCHES, klu.CLUSTER_PANEL_LAUNCHES, klu.PANEL_LAUNCHES,
+              cgemm.LAUNCHES)
+    lu_k, piv_k = klu.lu_factor(H)
+    torch.cuda.synchronize()
+    panels = -(-n // klu.NB)
+    assert (klu.LAUNCHES - before[0], klu.CLUSTER_PANEL_LAUNCHES - before[1],
+            klu.PANEL_LAUNCHES - before[2], cgemm.LAUNCHES - before[3]) == \
+        (1, panels, 0, panels - 1)
+    assert torch.equal(H, H0)
+    assert _backward_error(H.cpu().numpy(), lu_k.cpu().numpy(), piv_k.cpu().numpy()) \
+        <= 10 * np.sqrt(n) * EPS32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_zero_pivot_in_a_later_panel_through_maus_lu_factor(dtype):
+    """Rows and columns [100, 130) zero: the second panel meets zero pivots
+    (cluster kernel, fused interchange and solve), the factors stay finite,
+    U's diagonal holds zeros and a solve is non-finite."""
+    _need_card()
+    H = _card_batch(2, 130, dtype)
+    H[:, 100:, :] = 0
+    H[:, :, 100:] = 0
+    lu_k, piv_k = klu.lu_factor(H)
+    assert bool(torch.isfinite(torch.view_as_real(lu_k)).all())
+    assert bool((torch.diagonal(lu_k, dim1=1, dim2=2)[:, 100:] == 0).all())
+    x = torch.linalg.lu_solve(lu_k, piv_k, torch.ones((2, 130, 1), dtype=dtype,
                                                       device="cuda"))
     assert not torch.isfinite(torch.view_as_real(x)).all(dim=-1).all(dim=(1, 2)).any()
