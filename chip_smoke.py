@@ -1,45 +1,51 @@
 #!/usr/bin/env python3
-"""Smoke run of maus_tpu_torch on one NVIDIA GPU: the quickest proof that the
-port builds, that its kernels agree with their plain versions, and that its
-main paths run on the card through those kernels: a dense, ill-conditioned
-complex64 Ax=b at 4096², κ = 1e6, solved to 1e-8 (kernel K1); 16 eigenpairs
-of a general complex64 4096² operand to 1e-8 (kernel K2, and the blocked LU
-P3/P4 with the complex GEMM K3 in its finisher); 16 singular triplets of a
-4096×2048 operand to 1e-6 (P3, P4 and K3 in its finisher); the A/B of K2's
-two blocked variants P1 and P2 beside K2, as the JAX package's probes run
-them; 16 eigenpairs of a Hermitian complex64 operand at 4096² (deflated
-Lanczos) and 2048² (shared eigh), both finished through P4; and the
-reference's four scenarios through the CLI.
+"""Smoke run of maus_tpu_torch on one NVIDIA GPU: the quickest proof that
+the port builds, that its kernels agree with their plain versions, and that
+its main paths run on the card through those kernels: a dense,
+ill-conditioned complex64 Ax=b at 4096², κ = 1e6, solved to 1e-8 (kernel
+K1); 16 eigenpairs of a general complex64 4096² operand to 1e-8 (kernel K2, and the
+blocked LU P3/P4 with the complex GEMM K3 in its finisher); 16 singular
+triplets of a 4096×2048 operand to 1e-6 (P3, P4 and K3 in its finisher);
+K2's RQ kernel beside its QR form and the QR form's two blocked variants P1
+and P2, which the JAX package's probes run as an A/B; 16 eigenpairs of a
+Hermitian complex64 operand at 4096² (deflated Lanczos) and 2048² (shared
+eigh), both finished through P4; and the reference's four scenarios through
+the CLI.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
   0. the card, as nvidia-smi names it, with its power limit;
-  1. build kernels K1, K2, P1, P2, K3, P3 and P4 from maus_tpu_torch/csrc/
-     (one nvcc per source, all started together);
+  1. build kernels K1, K2 (and its QR form), P1, P2, K3, P3 and P4 from
+     maus_tpu_torch/csrc/ (one nvcc per source, all started together);
   2. K1 (the true-FP64 residual) against its plain PyTorch version at the
      main path's shapes and a few ragged ones, within 1e-15·‖A‖_F·‖x‖, and
      the median time of each and of torch.addmv at complex128;
   3. maus_tpu_torch.solve at 4096², κ = 1e6, tol 1e-8, 16 candidates, checked
      by an independent FP64 residual, with K1's launch count;
   4. the same at 16384², one timed run;
-  5. K2 (the batched shifted Hessenberg solve) against its plain version at
-     the eig slice shape (32 candidates, 4096², complex64, H from the eig
-     operand's reduction) and ragged shapes, by the relative residual
-     ‖(H + s_k I)w_k − b_k‖/‖b_k‖ and the normwise backward error, with
-     the zero-pivot contract and the global-memory carried row (N = 10241,
-     complex128), and the median times of the kernel, the plain version and
-     torch.linalg.solve (dense batched LU) at the slice shape; then P1 and
-     P2 (K2 with a blocked back substitution; P2 also divide-free, with R in
-     column tiles) held the same way on the same inputs and shapes, with the
-     zero-pivot contract, and their A/B beside K2 as the JAX probes run it:
-     the v1-vs-v2 and v1-vs-v3 relative differences and the median times of
-     each kernel and its plain version;
+  5. K2 (the batched shifted Hessenberg solve, the RQ kernel) against its
+     plain version at the eig slice shape (32 candidates, 4096², complex64,
+     H from the eig operand's reduction) at each block size, at ragged
+     shapes and at each home of the state past the register fit (shared
+     memory, global memory at N = 10241 complex128 and N = 17857 complex64),
+     by the relative residual ‖(H + s_k I)w_k − b_k‖/‖b_k‖ and the normwise
+     backward error, with the zero-pivot contract; K2's QR kernel (its first
+     form), P1 and P2 (the QR kernel with a blocked back substitution; P2
+     also divide-free, with R in column tiles) held the same way on the same
+     inputs and shapes; the median times at the slice shape of the RQ kernel
+     by block size, its step's latency floor, the plain version,
+     torch.linalg.solve (dense batched LU) and the call's extra device
+     memory; the A/B of the QR kernel, P1 and P2 beside it as the JAX probes
+     run it (the QR-vs-P1/P2 differences, each kernel's and plain version's
+     time); and one call of each design at (32, 16384), with its time and
+     the device memory it adds;
   6. maus_tpu_torch.eig of A = (G₁ + iG₂)/√N at 4096², complex64, 32
      candidates, 16 targets, tol 1e-8: ≥ 16 distinct pairs, the best 16 each
      at ≤ 1e-8 by an independent complex128 residual and pairwise distinct,
-     with the launch counts of K2, P3, P4 and K3; one first run, then one
-     timed warm run;
+     every shifted solve through the RQ kernel (none through the QR kernel,
+     P1 or P2), with the launch counts of K2, P3, P4 and K3 and the peak
+     device memory; one first run, then one timed warm run;
   7. K3 (the complex GEMM) against its plain version at 4096³, at the
      blocked LU's first trailing update at (8, 2048) and at ragged shapes,
      within 4·K·ε·max|a|·max|b|, with the times of the kernel, the plain
@@ -106,11 +112,17 @@ LU_BATCH = 8                 # the finishers' chunk of per-candidate systems
 # PR 2's eig finisher on the same card type (PERF.md §5): the 4096² eig's
 # finish_s with torch.linalg.lu_factor, first smoke run and final run
 PR2_FINISH_S = (1.880, 2.094)
-# the smallest complex128 N whose carried row leaves K2's shared memory
-# (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES), and that of
-# P1 and P2 (_SHARED_ROW_BYTES_BLOCKED)
+# the smallest complex128 N whose carried row leaves the QR kernel's shared
+# memory (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES), past
+# which the RQ kernel's rows beyond the register fit also leave shared
+# memory (rq_plan, 512 threads); the smallest complex64 N past which the RQ
+# kernel's do; and that of P1 and P2's carried row
+# (_SHARED_ROW_BYTES_BLOCKED)
 K2_GLOBAL_ROW_N = 10241
+K2_GLOBAL_ROW_N_C64 = 17857
 BLOCKED_GLOBAL_ROW_N = 8193
+# the 4096² eig with K2's QR kernel (PERF.md §5): iterations, distinct pairs
+QR_EIG = (6, 21)
 HERM_SMALL_N = 2048          # the shared-eigh branch (SolverConfig.eigh_max_n)
 # the reference's scenario counts (README.md, "Results vs the reference")
 SCENARIO_COUNTS = ["1/1", "8/8", "8/8", "2/2"]
@@ -605,13 +617,15 @@ def main():
 
     def reset_counts():
         residual.LAUNCHES = hess_solve.LAUNCHES = cgemm.LAUNCHES = 0
+        hess_solve.LAUNCHES_QR = 0
         hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
         lu.LAUNCHES = lu.PANEL_LAUNCHES = lu.CLUSTER_PANEL_LAUNCHES = 0
         lanczos.CALLS = 0
 
     def counts():
         return dict(K1=residual.LAUNCHES, K2=hess_solve.LAUNCHES,
-                    P1=hess_solve.LAUNCHES_V2, P2=hess_solve.LAUNCHES_V3,
+                    K2_QR=hess_solve.LAUNCHES_QR, P1=hess_solve.LAUNCHES_V2,
+                    P2=hess_solve.LAUNCHES_V3,
                     P3_panel=lu.PANEL_LAUNCHES, P3_cluster=lu.CLUSTER_PANEL_LAUNCHES,
                     P4_blocked=lu.LAUNCHES,
                     K3=cgemm.LAUNCHES, lanczos_calls=lanczos.CALLS)
@@ -706,12 +720,31 @@ def main():
     shifts = (-lam).contiguous()
     B = torch.complex(torch.randn(K, EIG_N, generator=gen, device=dev),
                       torch.randn(K, EIG_N, generator=gen, device=dev))
-    k2 = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_plain, H, shifts,
-                  B, f"K2 ({K}, {EIG_N}) complex64")
-    # P1 and P2, K2's function with a blocked back substitution, on the same
-    # inputs and held to the same bars (the JAX package's A/B probes,
-    # benchmarks/hess_v2_probe.py and hess_v3_probe.py, run them so)
-    variants = {"P1": (hess_solve.hess_solve_v2, hess_solve.hess_solve_v2_plain),
+    k2 = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_rq_plain, H,
+                  shifts, B, f"K2 ({K}, {EIG_N}) complex64")
+    say(5, f"K2 (RQ kernel, {hess_solve.RQ_THREADS} threads, "
+           f"{hess_solve.rq_plan(EIG_N, B.dtype)['home']}) vs plain ({K}, {EIG_N}) "
+           f"complex64: residual kernel {k2['resid']:.3e}, plain "
+           f"{k2['plain_resid']:.3e}; backward error kernel {k2['berr']:.3e}, plain "
+           f"{k2['plain_berr']:.3e} (bar {k2['bar']:g}); max|Δ| "
+           f"{k2['max_abs_err']:.3e} ({k2['rel_err']:.3e} of max|w|)")
+    # the other block sizes of the RQ kernel, held the same way
+    other_threads = sorted(t for (d, t) in hess_solve.RQ_ROWS
+                           if d == B.dtype and t != hess_solve.RQ_THREADS)
+    for T in other_threads:
+        r = check_k2(lambda H_, s_, B_: hess_solve.hess_solve(H_, s_, B_, threads=T),
+                     hess_solve.hess_solve_rq_plain, H, shifts, B,
+                     f"K2 {T} threads ({K}, {EIG_N}) complex64")
+        say(5, f"K2 (RQ kernel, {T} threads) vs plain ({K}, {EIG_N}) complex64: "
+               f"residual kernel {r['resid']:.3e}, backward error {r['berr']:.3e} "
+               f"(bar {r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
+        del r
+    # K2's QR kernel, and P1 and P2 (its function with a blocked back
+    # substitution), on the same inputs and held to the same bars (the JAX
+    # package's A/B probes, benchmarks/hess_v2_probe.py and hess_v3_probe.py,
+    # run P1 and P2 so)
+    variants = {"QR": (hess_solve.hess_solve_qr, hess_solve.hess_solve_plain),
+                "P1": (hess_solve.hess_solve_v2, hess_solve.hess_solve_v2_plain),
                 "P2": (hess_solve.hess_solve_v3, hess_solve.hess_solve_v3_plain)}
     pv = {}
     for name, (solve, plain) in variants.items():
@@ -723,13 +756,12 @@ def main():
                f"kernel {r['berr']:.3e}, plain {r['plain_berr']:.3e} (bar "
                f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e} "
                f"({r['rel_err']:.3e} of max|w|)")
-    say(5, f"K2 vs plain ({K}, {EIG_N}) complex64: residual kernel "
-           f"{k2['resid']:.3e}, plain {k2['plain_resid']:.3e}; backward error "
-           f"kernel {k2['berr']:.3e}, plain {k2['plain_berr']:.3e} (bar "
-           f"{k2['bar']:g}); max|Δ| {k2['max_abs_err']:.3e} "
-           f"({k2['rel_err']:.3e} of max|w|)")
+    # edge shapes (each state home of the RQ kernel: registers; rows past
+    # the register fit in shared memory at (2, 6000) complex64 and (2, 3000)
+    # complex128)
     for (k, n, dtype) in ((1, 1, torch.complex64), (7, 129, torch.complex64),
-                          (3, 1000, torch.complex64), (4, 512, torch.complex128)):
+                          (3, 1000, torch.complex64), (4, 512, torch.complex128),
+                          (2, 6000, torch.complex64), (2, 3000, torch.complex128)):
         rdt = dtype.to_real()
         An = torch.complex(torch.randn(n, n, generator=gen, dtype=rdt, device=dev),
                            torch.randn(n, n, generator=gen, dtype=rdt, device=dev)
@@ -739,9 +771,10 @@ def main():
                            torch.randn(k, generator=gen, dtype=rdt, device=dev)) * 0.3
         Bn = torch.complex(torch.randn(k, n, generator=gen, dtype=rdt, device=dev),
                            torch.randn(k, n, generator=gen, dtype=rdt, device=dev))
-        r = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_plain, Hn, sn,
+        r = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_rq_plain, Hn, sn,
                      Bn, f"K2 ({k}, {n}) {dtype}")
-        say(5, f"K2 vs plain ({k}, {n}) {str(dtype)[6:]}: residual kernel "
+        say(5, f"K2 vs plain ({k}, {n}) {str(dtype)[6:]}, state "
+               f"{hess_solve.rq_plan(n, dtype)['home']}: residual kernel "
                f"{r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
                f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
         for name, (solve, plain) in variants.items():
@@ -750,36 +783,41 @@ def main():
                    f"{r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
                    f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
         del An, Hn, Bn
-    # past the kernel's shared-memory budget the carried row lives in a
-    # global scratch row: N = 10241 in complex128, on 3I plus a random
-    # Hessenberg part of Frobenius norm ≈ 0.7 (well conditioned without a
-    # reduction)
-    n = K2_GLOBAL_ROW_N
-    Hg = torch.triu(torch.randn(n, n, generator=gen, dtype=torch.complex128,
-                                device=dev), diagonal=-1) / n \
-        + 3.0 * torch.eye(n, dtype=torch.complex128, device=dev)
-    sg = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device=dev)
-    Bg = torch.randn(1, n, generator=gen, dtype=torch.complex128, device=dev)
-    r = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_plain, Hg, sg, Bg,
-                 f"K2 (1, {n}) complex128")
-    say(5, f"K2 vs plain (1, {n}) complex128, carried row in global memory: "
-           f"residual kernel {r['resid']:.3e}, plain {r['plain_resid']:.3e} "
-           f"(bar {r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
-    del Hg, Bg
-    torch.cuda.empty_cache()
+    # rows past the shared-memory fit: the RQ kernel's state and the QR
+    # kernel's carried row in a global scratch, N = 10241 in complex128 (and
+    # the RQ kernel's at K2_GLOBAL_ROW_N_C64 in complex64), on 3I plus a
+    # random Hessenberg part of Frobenius norm ≈ 0.7 (well conditioned
+    # without a reduction)
+    for n, dtype, solvers in (
+            (K2_GLOBAL_ROW_N, torch.complex128,
+             (("K2", hess_solve.hess_solve, hess_solve.hess_solve_rq_plain),
+              ("QR", hess_solve.hess_solve_qr, hess_solve.hess_solve_plain))),
+            (K2_GLOBAL_ROW_N_C64, torch.complex64,
+             (("K2", hess_solve.hess_solve, hess_solve.hess_solve_rq_plain),))):
+        Hg = torch.triu(torch.randn(n, n, generator=gen, dtype=dtype,
+                                    device=dev), diagonal=-1) / n \
+            + 3.0 * torch.eye(n, dtype=dtype, device=dev)
+        sg = torch.full((1,), 0.5 + 0.5j, dtype=dtype, device=dev)
+        Bg = torch.randn(1, n, generator=gen, dtype=dtype, device=dev)
+        for name, solve, plain in solvers:
+            r = check_k2(solve, plain, Hg, sg, Bg, f"{name} (1, {n}) {dtype}")
+            where = (f"state {hess_solve.rq_plan(n, dtype)['home']}" if name == "K2"
+                     else "carried row in global memory")
+            say(5, f"{name} vs plain (1, {n}) {str(dtype)[6:]}, {where}: residual "
+                   f"kernel {r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
+                   f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
+        del Hg, Bg, r
+        torch.cuda.empty_cache()
     Hz = torch.zeros(5, 5, dtype=torch.complex64, device=dev)
     Hz[0, 1] = 1.0
-    Wz = hess_solve.hess_solve(Hz, torch.zeros(2, dtype=torch.complex64, device=dev),
-                               torch.ones(2, 5, dtype=torch.complex64, device=dev))
-    if bool(torch.isfinite(torch.view_as_real(Wz)).all(dim=-1).all(dim=-1).any()):
-        raise AssertionError("K2: an exact-zero pivot gave a finite row")
-    say(5, "K2 zero-pivot contract: every row of a singular shifted H non-finite")
-    for name, (solve, _) in variants.items():
+    for name, solve in (("K2", hess_solve.hess_solve),
+                        *((name, solve) for name, (solve, _) in variants.items())):
         Wz = solve(Hz, torch.zeros(2, dtype=torch.complex64, device=dev),
                    torch.ones(2, 5, dtype=torch.complex64, device=dev))
         if bool(torch.isfinite(torch.view_as_real(Wz)).all(dim=-1).all(dim=-1).any()):
             raise AssertionError(f"{name}: an exact-zero pivot gave a finite row")
-    say(5, "P1, P2 zero-pivot contract: every row of a singular shifted H non-finite")
+    say(5, "K2, QR, P1, P2 zero-pivot contract: every row of a singular shifted "
+           "H non-finite")
     # P1's and P2's carried row in global memory (past their 128 KB budget),
     # drawn from a generator of its own so that the later phases' draws stay
     # those of earlier slices
@@ -791,7 +829,8 @@ def main():
         + 3.0 * torch.eye(n, dtype=torch.complex128, device=dev)
     sg = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device=dev)
     Bg = torch.randn(1, n, generator=gen_pv, dtype=torch.complex128, device=dev)
-    for name, (solve, plain) in variants.items():
+    for name in ("P1", "P2"):
+        solve, plain = variants[name]
         r = check_k2(solve, plain, Hg, sg, Bg, f"{name} (1, {n}) complex128")
         say(5, f"{name} vs plain (1, {n}) complex128, carried row in global "
                f"memory: residual kernel {r['resid']:.3e}, plain "
@@ -799,11 +838,42 @@ def main():
                f"{r['max_abs_err']:.3e}")
     del Hg, Bg, r
     torch.cuda.empty_cache()
+    # times at the eig slice shape: the RQ kernel at each block size, the
+    # latency floor of its step, the plain version and the library call;
+    # then K2's QR kernel, P1 and P2 beside it (the A/B of the JAX probes,
+    # with the v1-vs-vX difference against the QR kernel), their launches
+    # counted from here
     k2_ms = time_ms(lambda: hess_solve.hess_solve(H, shifts, B), reps=10)
-    k2_plain_ms = time_ms(lambda: hess_solve.hess_solve_plain(H, shifts, B), reps=2)
+    by_threads = {T: time_ms(lambda: hess_solve.hess_solve(H, shifts, B, threads=T),
+                             reps=10) for T in other_threads}
+    by_threads[hess_solve.RQ_THREADS] = k2_ms
+    # the latency floor of a step: the kernel that runs only a step's chain
+    # (slot read, the owner's row and pivot, slot write, one barrier), in K
+    # blocks of the RQ kernel's size
+    lib = build.library()
+    floor_iters = 20000
+    floor_out = torch.empty(K, dtype=torch.float64, device=dev)
+
+    def floor_steps():
+        err = lib.maus_hess_rq_step_floor(
+            0, hess_solve.RQ_THREADS, K, floor_iters,
+            ctypes.c_void_p(floor_out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"step-floor kernel launch failed: CUDA error {err}")
+
+    floor_us = time_ms(floor_steps, reps=5) * 1e3 / floor_iters
+    k2_plain_ms = time_ms(lambda: hess_solve.hess_solve_rq_plain(H, shifts, B),
+                          reps=2)
     Hd = H[None] + torch.diag_embed(shifts[:, None].expand(K, EIG_N))
     k2_lib_ms = time_ms(lambda: torch.linalg.solve(Hd, B[..., None]), reps=3)
     del Hd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hess_solve.hess_solve(H, shifts, B)
+    torch.cuda.synchronize()
+    k2_extra = torch.cuda.max_memory_allocated() - base
     # the function's least work: read H's upper Hessenberg part, shifts and
     # B once, write W once; ~14·N² flops per candidate (10·N² in the sweep,
     # 4·N² in the back substitution)
@@ -811,37 +881,82 @@ def main():
     k2_flops = 14 * K * EIG_N ** 2
     k2_bound, k2_by = bound_ms(k2_bytes, k2_flops, FP32_FLOPS)
     k2_bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
-    r_roundtrip_ms = 2 * K * EIG_N * (EIG_N + 1) // 2 * 8 / HBM_BYTES_PER_S * 1e3
-    say(5, f"K2 at ({K}, {EIG_N}) complex64: kernel {k2_ms:.3f} ms, plain "
+    floor_ms = floor_us * (EIG_N - 1) / 1e3
+    say(5, f"K2 (RQ kernel) at ({K}, {EIG_N}) complex64: kernel {k2_ms:.4f} ms "
+           f"({1e3 * k2_ms / (EIG_N - 1):.4f} µs a step), by block size "
+           f"{ {T: round(t, 4) for T, t in sorted(by_threads.items())} } ms; "
+           f"latency floor {floor_us:.4f} µs a step ({K} blocks of "
+           f"{hess_solve.RQ_THREADS} threads; {floor_ms:.4f} ms for {EIG_N - 1} "
+           f"steps, {100 * floor_ms / k2_ms:.1f}% of the kernel's time); plain "
            f"{k2_plain_ms:.1f} ms, torch.linalg.solve (dense batched LU) "
-           f"{k2_lib_ms:.1f} ms; bound {k2_bound:.4f} ms ({k2_by}; bytes "
-           f"alone {k2_bytes_ms:.4f} ms); the "
-           f"packed R round trip's floor {r_roundtrip_ms:.3f} ms is "
-           f"{100 * r_roundtrip_ms / k2_ms:.1f}% of the kernel's time")
-    # the A/B of the JAX probes: P1 and P2 beside K2 on one (H, shifts, B),
-    # the v1-vs-vX difference and each kernel's time; the launches of P1
-    # and P2 on this path are counted from here
+           f"{k2_lib_ms:.1f} ms; bound {k2_bound:.4f} ms ({k2_by}; bytes alone "
+           f"{k2_bytes_ms:.4f} ms); the call's extra device memory "
+           f"{k2_extra / 2**20:.1f} MiB")
+    hess_solve.LAUNCHES_QR = 0
     hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
-    W1 = k2.pop("W")
+    W1 = pv["QR"]["W"]
     for name, (solve, plain) in variants.items():
         r = pv[name]
         Wv = solve(H, shifts, B)
-        r["v1_rel_diff"] = float((W1 - Wv).abs().max()) / max(float(W1.abs().max()),
-                                                               1e-30)
-        del Wv, r["W"]
+        if name != "QR":
+            r["v1_rel_diff"] = float((W1 - Wv).abs().max()) / max(
+                float(W1.abs().max()), 1e-30)
+        del Wv
         r["ms"] = time_ms(lambda: solve(H, shifts, B), reps=10)
         r["plain_ms"] = time_ms(lambda: plain(H, shifts, B), reps=2)
+    pv["QR"]["launches"] = hess_solve.LAUNCHES_QR
     pv["P1"]["launches"] = hess_solve.LAUNCHES_V2
     pv["P2"]["launches"] = hess_solve.LAUNCHES_V3
     k2_again_ms = time_ms(lambda: hess_solve.hess_solve(H, shifts, B), reps=10)
+    k2_vs_qr = float((W1 - k2["W"]).abs().max()) / float(W1.abs().max())
     for name, r in pv.items():
         say(5, f"{name} at ({K}, {EIG_N}) complex64: kernel {r['ms']:.3f} ms "
-               f"({k2_ms / r['ms']:.2f}× K2's {k2_ms:.3f} ms; K2 again after "
-               f"both: {k2_again_ms:.3f} ms), plain {r['plain_ms']:.1f} ms, "
-               f"torch.linalg.solve {k2_lib_ms:.1f} ms, bound {k2_bound:.4f} ms "
-               f"({k2_by}, the work of K2); v1-vs-{name} rel diff "
-               f"{r['v1_rel_diff']:.3e}; launches {r['launches']}")
-    del H, B, shifts, W1
+               f"({r['ms'] / k2_ms:.2f}× the RQ kernel's {k2_ms:.4f} ms; RQ again "
+               f"after all three: {k2_again_ms:.4f} ms), plain {r['plain_ms']:.1f} "
+               f"ms, torch.linalg.solve {k2_lib_ms:.1f} ms, bound {k2_bound:.4f} ms "
+               f"({k2_by}, the work of K2); "
+               + (f"QR-vs-{name} rel diff {r['v1_rel_diff']:.3e}; "
+                  if "v1_rel_diff" in r else "")
+               + f"launches {r['launches']}")
+    say(5, f"RQ-vs-QR rel diff at ({K}, {EIG_N}) complex64: {k2_vs_qr:.3e} of "
+           f"max|w| (two complex64 orders of the same solve; both within the bars "
+           f"above)")
+    for r in (k2, *pv.values()):
+        r.pop("W", None)
+    del H, B, W1
+    torch.cuda.empty_cache()
+    # the future 16384² eig's shape: one call of each design at (32, 16384)
+    # complex64 (H = 3I plus a random Hessenberg part; the RQ kernel's rows
+    # past 4096 in shared memory), its time and the device memory the call
+    # adds; the RQ kernel also held to its plain version
+    n = LARGE_N
+    gen16 = torch.Generator(device=dev)
+    gen16.manual_seed(SEED + 2)
+    Hb = torch.triu(cnormal(gen16, (n, n), torch.complex64, dev), diagonal=-1) / n \
+        + 3.0 * torch.eye(n, dtype=torch.complex64, device=dev)
+    Bb = cnormal(gen16, (K, n), torch.complex64, dev)
+    big = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_rq_plain, Hb,
+                   shifts, Bb, f"K2 ({K}, {n}) complex64")
+    del big["W"]
+    k2_large = {}
+    for name, solve in (("K2", hess_solve.hess_solve),
+                        *((name, solve) for name, (solve, _) in variants.items())):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        solve(Hb, shifts, Bb)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        k2_large[name] = (time_ms(lambda: solve(Hb, shifts, Bb), reps=2), extra)
+    say(5, f"({K}, {n}) complex64, one design at a time: "
+           + "; ".join(f"{name} {ms:.3f} ms, the call's extra device memory "
+                       f"{extra / 2**30:.3f} GiB" for name, (ms, extra)
+                       in k2_large.items())
+           + f"; K2 (state {hess_solve.rq_plan(n, torch.complex64)['home']}) vs "
+             f"plain: residual {big['resid']:.3e}, plain {big['plain_resid']:.3e}, "
+             f"backward error {big['berr']:.3e} (bar {big['bar']:g})")
+    del Hb, Bb
     torch.cuda.empty_cache()
 
     # ---- phase 6: maus_tpu_torch.eig on the card ---------------------------
@@ -857,8 +972,15 @@ def main():
         raise AssertionError(f"the eig finisher ran the blocked LU (P4) "
                              f"{eig_counts['P4_blocked']} and the cluster panel "
                              f"{eig_counts['P3_cluster']} times")
+    if not (eig_counts["K2"] > 0 and eig_counts["K2_QR"] == 0 and
+            eig_counts["P1"] == 0 and eig_counts["P2"] == 0):
+        raise AssertionError(f"the eig's shifted solves went through the RQ "
+                             f"kernel {eig_counts['K2']} times and the QR kernel, "
+                             f"P1, P2 {eig_counts['K2_QR']}, {eig_counts['P1']}, "
+                             f"{eig_counts['P2']} times")
+    eig_peak = torch.cuda.max_memory_allocated()
     say(6, f"first eig {EIG_N}²: {first}; peak device memory "
-           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+           f"{eig_peak / 2**30:.2f} GiB")
     warm = eig_and_check(maus_tpu_torch, hess_solve, A, "4096² eig")
     say(6, f"{EIG_N}² general eig: {warm['num_distinct']} distinct pairs "
            f"(target {EIG_TARGETS}) in {warm['iterations']} iterations, K2 "
@@ -868,7 +990,9 @@ def main():
            f"{warm['setup_s']:.3f} s, engine {warm['engine_s']:.3f} s, "
            f"finisher {warm['finish_s']:.3f} s (PR 2, torch.linalg.lu_factor: "
            f"{PR2_FINISH_S[0]:.3f}-{PR2_FINISH_S[1]:.3f} s); warm wall "
-           f"{warm['wall_s']:.3f} s (one run after one first run)")
+           f"{warm['wall_s']:.3f} s (one run after one first run); with the QR "
+           f"kernel: {QR_EIG[0]} iterations, {QR_EIG[1]} distinct; peak device "
+           f"memory {eig_peak / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
 
     del A
@@ -1226,18 +1350,22 @@ def main():
         "ms": k64["ms"], "plain_ms": k64["plain_ms"], "bound_ms": k1_bound,
         "bound_by": k1_by, "library_ms": None}, {
         "name": "hess_solve", "route": "cuda",
-        "source": "maus_tpu_torch/csrc/hess_solve.cu",
+        "source": "maus_tpu_torch/csrc/hess_solve_rq.cu",
         "replaces": "maus_tpu/ops/pallas/hess_solve.py:158",
         "launches": eig_launches, "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
         "bound_by": k2_by, "library_ms": k2_lib_ms}, *[{
-        "name": name, "route": "cuda", "source": f"maus_tpu_torch/csrc/{name}.cu",
+        "name": name, "route": "cuda", "source": f"maus_tpu_torch/csrc/{src}.cu",
         "replaces": replaces, "launches": pv[key]["launches"],
         "max_abs_err": pv[key]["max_abs_err"], "ms": pv[key]["ms"],
         "plain_ms": pv[key]["plain_ms"], "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": k2_lib_ms} for key, name, replaces in (
-            ("P1", "hess_solve_v2", "benchmarks/hess_v2_probe.py:168"),
-            ("P2", "hess_solve_v3", "benchmarks/hess_v3_probe.py:187"))], {
+        "library_ms": k2_lib_ms} for key, name, src, replaces in (
+            ("QR", "hess_solve_qr", "hess_solve",
+             "maus_tpu/ops/pallas/hess_solve.py:158"),
+            ("P1", "hess_solve_v2", "hess_solve_v2",
+             "benchmarks/hess_v2_probe.py:168"),
+            ("P2", "hess_solve_v3", "hess_solve_v3",
+             "benchmarks/hess_v3_probe.py:187"))], {
         "name": "cgemm", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm.cu",
         "replaces": "maus_tpu/ops/pallas/cgemm.py:57",
         "launches": svd_counts["K3"], "max_abs_err": u_err, "ms": u_ms,

@@ -10,9 +10,10 @@ working dtype (complex64 on CUDA, complex128 on the CPU); certified
 refinement takes a linear solution to the user's tolerance with a true-FP64
 residual (kernel K1, ``csrc/true_residual.cu``), and every shifted solve of
 the general eig engine runs against the shared Hessenberg form through
-kernel K2 (``csrc/hess_solve.cu``; its blocked variants P1 and P2,
-``csrc/hess_solve_v2.cu`` and ``csrc/hess_solve_v3.cu``, are timed beside
-it). The finishers of eig and SVD factor their per-candidate shifted systems
+kernel K2 (``csrc/hess_solve_rq.cu``, a bottom-up RQ sweep fused with the
+back substitution; its first, top-down QR form ``csrc/hess_solve.cu`` and
+that form's blocked variants P1 and P2, ``csrc/hess_solve_v2.cu`` and
+``csrc/hess_solve_v3.cu``, are timed beside it). The finishers of eig and SVD factor their per-candidate shifted systems
 with the port's blocked LU (kernels P3 and P4, ``csrc/lu.cu``, with the
 complex GEMM K3, ``csrc/cgemm.cu``). Entry points run on the card unless the
 caller passes ``device="cpu"``. The package imports torch and numpy, never

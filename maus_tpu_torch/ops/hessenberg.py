@@ -7,10 +7,12 @@ unitary Q), after which
 
     (A − λI + ψI)⁻¹ v  =  Q · (H − λI + ψI)⁻¹ · Qᴴ v
 
-and each shifted solve is a Givens QR of an upper-Hessenberg matrix, O(N²) per
-candidate with no pivoting. That solve is kernel K2 on the card
-(:mod:`maus_tpu_torch.ops.kernels.hess_solve`); the two GEMMs around it stay
-``torch.matmul``. torch has no Hessenberg reduction either, so the
+and each shifted solve is a Givens factorization of an upper-Hessenberg
+matrix, O(N²) per candidate with no pivoting. That solve is kernel K2 on the
+card (:mod:`maus_tpu_torch.ops.kernels.hess_solve`: a bottom-up RQ sweep
+fused with the back substitution, where the JAX package sweeps top-down by
+QR; the two orders agree to rounding in residual and direction); the two
+GEMMs around it stay ``torch.matmul``. torch has no Hessenberg reduction either, so the
 compact-WY blocked Householder reduction is carried over.
 
 Not carried over, because both are TPU limits and not part of the contract:
@@ -18,8 +20,8 @@ the ``_pallas_dispatch_ok`` gate (complex64, N % 128 == 0, N ≤ 1024, K a
 multiple of the VMEM chunk), which sent every other shape to a ``lax.scan``
 fallback, and the ``_HESS_SOLVE_TEMP_CAP`` candidate chunking, which bounded
 the scan's double-buffered (K, N, N) HLO temporaries. The CUDA kernel takes
-any (K, N) and holds one packed triangular factor per candidate, half the
-scan's working set, with no compile-time buffers to cap.
+any (K, N) and stores no triangular factor: its scratch is O(K·N), beside a
+transposed copy of H.
 """
 from __future__ import annotations
 

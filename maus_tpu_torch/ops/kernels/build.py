@@ -21,8 +21,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("true_residual.cu", "hess_solve.cu", "hess_solve_v2.cu",
-           "hess_solve_v3.cu", "cgemm.cu", "lu.cu")
+SOURCES = ("true_residual.cu", "hess_solve_rq.cu", "hess_solve.cu",
+           "hess_solve_v2.cu", "hess_solve_v3.cu", "cgemm.cu", "lu.cu")
 HEADERS = ("hess_common.cuh", "hess_blocked.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -111,7 +111,9 @@ def library() -> ctypes.CDLL:
                     ("maus_lu_panel_cluster", [ptr, ptr] + [i32] * 6 + [ptr]),
                     ("maus_lu_cluster_occupancy", [i32] * 4 + [ptr]),
                     ("maus_lu_factor", [ptr, ptr] + [i32] * 4 + [ptr, ptr]),
-                    ("maus_lu_cluster_barrier", [i32] * 3 + [ptr])):
+                    ("maus_lu_cluster_barrier", [i32] * 3 + [ptr]),
+                    ("maus_hess_solve_rq", [ptr] * 7 + [i32] * 5 + [ptr]),
+                    ("maus_hess_rq_step_floor", [i32] * 4 + [ptr, ptr])):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int

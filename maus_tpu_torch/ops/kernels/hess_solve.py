@@ -1,35 +1,44 @@
-"""Kernel K2, the batched shifted upper-Hessenberg solve, and its two
-variants P1 and P2.
+"""Kernel K2, the batched shifted upper-Hessenberg solve, and its variants.
 
 K2 replaces ``maus_tpu/ops/pallas/hess_solve.py::hess_solve_batched_pallas``
-(CUDA source ``maus_tpu_torch/csrc/hess_solve.cu``); it carries every shifted
-solve of the eig path. P1 and P2 compute the same function with a blocked
-back substitution: P1 replaces ``benchmarks/hess_v2_probe.py::hess_solve_v2``
+and carries every shifted solve of the eig path. Its kernel is the bottom-up
+RQ sweep fused with the back substitution (CUDA source
+``maus_tpu_torch/csrc/hess_solve_rq.cu``): one column of the working matrix
+and one column of partial sums are carried per candidate, no triangular
+factor is stored, and the call's scratch is O(K·N). Its plain version is
+:func:`hess_solve_rq_plain`, the same algorithm in torch.
+
+The first CUDA form of K2, a top-down Givens QR sweep with the triangular
+factor packed in an O(K·N²) scratch and a separate back substitution
+(``csrc/hess_solve.cu``, the TPU kernel's own order), stays as
+:func:`hess_solve_qr` with its plain version :func:`hess_solve_plain`. P1 and
+P2 compute the same function as that QR form with a blocked back
+substitution: P1 replaces ``benchmarks/hess_v2_probe.py::hess_solve_v2``
 (``csrc/hess_solve_v2.cu``), P2 ``benchmarks/hess_v3_probe.py::hess_solve_v3``
 (``csrc/hess_solve_v3.cu``, with a divide-free rotation, R in column tiles
 and reciprocal diagonals). Like their TPU counterparts, which only the JAX
-package's A/B probes call, P1 and P2 are on no solver path; designs and
-bounds are in the sources' headers.
+package's A/B probes call, the QR form, P1 and P2 are on no solver path;
+designs and bounds are in the sources' headers.
 
-:func:`hess_solve`, :func:`hess_solve_v2` and :func:`hess_solve_v3` launch
-their kernel for CUDA tensors and take their plain version only for tensors
-on the CPU; on a CUDA tensor they launch the kernel or raise, and never fall
-back. ``LAUNCHES``, ``LAUNCHES_V2`` and ``LAUNCHES_V3`` count kernel launches
-(the plain versions do not count), so a run can show which kernel it went
-through.
+Every wrapper here launches its kernel for CUDA tensors and takes its plain
+version only for tensors on the CPU; on a CUDA tensor it launches the kernel
+or raises, and never falls back. ``LAUNCHES`` (K2), ``LAUNCHES_QR``,
+``LAUNCHES_V2`` and ``LAUNCHES_V3`` count kernel launches (the plain
+versions do not count), so a run can show which kernel it went through.
 """
 from __future__ import annotations
 
 import torch
 
 LAUNCHES = 0
+LAUNCHES_QR = 0
 LAUNCHES_V2 = 0
 LAUNCHES_V3 = 0
 
-# Past this many bytes per row the carried row leaves shared memory for a
-# global scratch row (K2's shared-memory budget, well under the 227 KB a
-# block may use). P1 and P2 also stage a BLOCK × (BLOCK + 1) tile, so their
-# budget for the row is smaller.
+# Past this many bytes per row the carried row of the QR form leaves shared
+# memory for a global scratch row (its shared-memory budget, well under the
+# 227 KB a block may use). P1 and P2 also stage a BLOCK × (BLOCK + 1) tile,
+# so their budget for the row is smaller.
 _SHARED_ROW_BYTES = 160 * 1024
 _SHARED_ROW_BYTES_BLOCKED = 128 * 1024
 
@@ -37,7 +46,23 @@ _SHARED_ROW_BYTES_BLOCKED = 128 * 1024
 # csrc/hess_blocked.cuh; the kernels refuse any other).
 BLOCK = 64
 
-# P2's floor on |a|² and |a|² + |b|² (tiny<R>() in csrc/hess_blocked.cuh)
+# The RQ kernel's launch shapes: threads a block, and for each its rows a
+# thread in registers (the rows_per_thread template of
+# csrc/hess_solve_rq.cu; the kernel refuses any other pair). Rows past
+# threads × rows ("the register fit") keep their state in shared memory if
+# it fits beside the block scan's 2·threads elements, else in a global
+# scratch of the call.
+RQ_ROWS = {(torch.complex64, 256): 16, (torch.complex64, 512): 8,
+           (torch.complex64, 1024): 4, (torch.complex128, 256): 8,
+           (torch.complex128, 512): 4}
+RQ_THREADS = 512
+# dynamic shared memory a block may use on Hopper (227 KB), less the
+# kernel's static shared memory (the pivot slot and queue, < 2 KB) and the
+# 1 KB the card reserves per block
+_SMEM_LIMIT = 232448 - 4096
+
+# The floor on |a|² and |a|² + |b|² of P2's rotation and of K2's pivot
+# (tiny<R>() in csrc/hess_blocked.cuh and csrc/hess_solve_rq.cu)
 _TINY = {torch.complex64: 1e-37, torch.complex128: 1e-300}
 
 
@@ -101,8 +126,10 @@ def _inf_like(t: torch.Tensor) -> torch.Tensor:
 
 def hess_solve_plain(H: torch.Tensor, shifts: torch.Tensor,
                      B: torch.Tensor) -> torch.Tensor:
-    """(H + s_k I) w_k = b_k by the same rotations as K2: the counterpart of
-    ``_hess_solve_scan``, a column-by-column back substitution."""
+    """(H + s_k I) w_k = b_k by the top-down QR sweep of
+    :func:`hess_solve_qr`: the counterpart of ``_hess_solve_scan``, the
+    same rotations in the same order, then a column-by-column back
+    substitution."""
     Rw, y = _sweep(H, shifts, B, _givens)
     K, N = B.shape
     x = torch.zeros_like(B)
@@ -114,6 +141,92 @@ def hess_solve_plain(H: torch.Tensor, shifts: torch.Tensor,
         x[:, j] = torch.where(safe, (y[:, j] - dot) /
                               torch.where(safe, rjj, torch.ones_like(rjj)), inf)
     return x
+
+
+def _pivot(a: torch.Tensor, acc: torch.Tensor, h: torch.Tensor,
+           b: torch.Tensor):
+    """A step of the RQ sweep, divide-free as the kernel computes it: the
+    rotation (c, s) zeroing h under the carried entry a (c = |a|/r,
+    s = sign(a)·conj(h)/r, identity where h = 0) from ia = rsqrt(|a|²) and
+    ir = rsqrt(|a|² + |h|²), and z = (b − acc)/R[k, k] =
+    (b − acc)·conj(sign(a))·ir; inf where |a|² + |h|² = 0."""
+    tiny = _TINY[a.dtype]
+    a2 = a.real * a.real + a.imag * a.imag
+    h2 = h.real * h.real + h.imag * h.imag
+    r2 = a2 + h2
+    ir = torch.rsqrt(torch.clamp_min(r2, tiny))
+    ia = torch.rsqrt(torch.clamp_min(a2, tiny))
+    sg = torch.where(a2 > tiny, a * ia, torch.ones_like(a))
+    c = torch.where(h2 > 0, a2 * ia * ir, torch.ones_like(a2)).to(a.dtype)
+    s = sg * h.conj() * ir
+    z = torch.where(r2 > 0, (b - acc) * sg.conj() * ir, _inf_like(a))
+    return c, s, z
+
+
+def hess_solve_rq_plain(H: torch.Tensor, shifts: torch.Tensor,
+                        B: torch.Tensor) -> torch.Tensor:
+    """(H + s_k I) w_k = b_k by K2's bottom-up RQ sweep, in the kernel's
+    order of operations, with O(K·N) state.
+
+    With M = H + s_k I, column rotations G_k on columns (k−1, k) for k = N−1
+    down to 1 zero M's subdiagonal from the bottom: M·G_{N−1}⋯G_1 = R. The
+    carried column ``car`` starts as M's last column; at step k the
+    rotation (c, s) of car[k] and M[k, k−1] makes R's column k final
+    (c·car + s·fresh, fresh = M's column k−1), which solves R z = b for z_k
+    at once (:func:`_pivot`) and adds R[:k, k]·z_k to the partial sums
+    ``acc``; the rest of the pair becomes the next carried column. Then
+    w = G_{N−1}⋯G_1 z."""
+    K, N = B.shape
+    Ht = H.T
+    car = Ht[N - 1].expand(K, N).clone()
+    car[:, N - 1] += shifts
+    acc = torch.zeros_like(B)
+    z = torch.empty_like(B)
+    cs = torch.ones_like(B)
+    ss = torch.zeros_like(B)
+    for k in range(N - 1, 0, -1):
+        fresh = Ht[k - 1, :k + 1].expand(K, k + 1).clone()
+        fresh[:, k - 1] += shifts
+        c, s, z[:, k] = _pivot(car[:, k], acc[:, k], fresh[:, k], B[:, k])
+        cs[:, k], ss[:, k] = c, s
+        c, s = c[:, None], s[:, None]
+        o, f = car[:, :k], fresh[:, :k]
+        acc[:, :k] += (c * o + s * f) * z[:, k, None]
+        car[:, :k] = -s.conj() * o + c * f
+    z[:, 0] = _pivot(car[:, 0], acc[:, 0], torch.zeros_like(car[:, 0]),
+                     B[:, 0])[2]
+    w = torch.empty_like(B)
+    t = z[:, 0]
+    for k in range(1, N):
+        c, s, zk = cs[:, k], ss[:, k], z[:, k]
+        w[:, k - 1] = c * t + s * zk
+        t = -s.conj() * t + c * zk
+    w[:, N - 1] = t
+    return w
+
+
+def rq_plan(N: int, dtype: torch.dtype, threads: int | None = None) -> dict:
+    """The RQ kernel's launch for a row length N: threads a block, rows a
+    thread in registers, and the home of the rows past the register fit
+    ("registers" when there are none, else "shared" or "global"), with the
+    dynamic shared memory that takes."""
+    threads = RQ_THREADS if threads is None else threads
+    if (dtype, threads) not in RQ_ROWS:
+        have = sorted(t for d, t in RQ_ROWS if d == dtype)
+        raise ValueError(f"no RQ kernel for {dtype} at {threads} threads "
+                         f"(have {have})")
+    rows = RQ_ROWS[(dtype, threads)]
+    esz = 8 if dtype == torch.complex64 else 16
+    spill = max(0, N - threads * rows)
+    smem = 2 * threads * esz
+    if spill == 0:
+        home = "registers"
+    elif smem + 2 * spill * esz <= _SMEM_LIMIT:
+        home, smem = "shared", smem + 2 * spill * esz
+    else:
+        home = "global"
+    return dict(threads=threads, rows=rows, home=home, spill_rows=spill,
+                smem=smem)
 
 
 def _back_blocked(Rw: torch.Tensor, y: torch.Tensor,
@@ -231,23 +344,75 @@ def _launch(name: str, H: torch.Tensor, shifts: torch.Tensor, B: torch.Tensor,
     return W
 
 
-def hess_solve(H: torch.Tensor, shifts: torch.Tensor,
-               B: torch.Tensor) -> torch.Tensor:
-    """Solve (H + shifts[k]·I) w_k = B[k] for every k (kernel K2).
+def hess_solve(H: torch.Tensor, shifts: torch.Tensor, B: torch.Tensor,
+               threads: int | None = None) -> torch.Tensor:
+    """Solve (H + shifts[k]·I) w_k = B[k] for every k (kernel K2, the
+    bottom-up RQ sweep fused with the back substitution).
 
     H: (N, N) upper Hessenberg (entries below the subdiagonal are ignored);
     shifts: (K,), pass −λ + ψ; B: (K, N); one dtype, complex64 or
     complex128, contiguous. Returns W: (K, N); a row whose triangular factor
-    has an exact-zero diagonal comes back non-finite.
+    has an exact-zero diagonal comes back non-finite. ``threads`` picks
+    another block size of :data:`RQ_ROWS` (default :data:`RQ_THREADS`).
     """
     global LAUNCHES
+    _check(H, shifts, B)
+    if B.device.type == "cpu":
+        return hess_solve_rq_plain(H, shifts, B)
+    if B.device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {B.device}")
+    import ctypes
+
+    from .build import library
+
+    if any(t.data_ptr() % B.element_size() for t in (H, shifts, B)):
+        raise ValueError("misaligned operand storage")
+    K, N = B.shape
+    if K >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError(f"batch {tuple(B.shape)} exceeds the kernel's int range")
+    plan = rq_plan(N, B.dtype, threads)
+    lib = library()
+    with torch.cuda.device(B.device):
+        # H's columns as rows, so that a step reads its column coalesced
+        Ht = H.T.contiguous()
+        W = torch.empty_like(B)
+        # per candidate: the rotations' s and the solution z of R z = b,
+        # and the rotations' c
+        SZ = torch.empty((K, 2, N), dtype=B.dtype, device=B.device)
+        C = torch.empty((K, N), dtype=B.real.dtype, device=B.device)
+        spill = None
+        if plan["home"] == "global":
+            spill = torch.empty((K, plan["spill_rows"], 2), dtype=B.dtype,
+                                device=B.device)
+        stream = torch.cuda.current_stream(B.device).cuda_stream
+        err = lib.maus_hess_solve_rq(
+            ctypes.c_void_p(Ht.data_ptr()), ctypes.c_void_p(shifts.data_ptr()),
+            ctypes.c_void_p(B.data_ptr()), ctypes.c_void_p(W.data_ptr()),
+            ctypes.c_void_p(SZ.data_ptr()), ctypes.c_void_p(C.data_ptr()),
+            ctypes.c_void_p(None if spill is None else spill.data_ptr()),
+            int(B.dtype == torch.complex128), K, N, plan["threads"],
+            plan["rows"], ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"maus_hess_solve_rq kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return W
+
+
+def hess_solve_qr(H: torch.Tensor, shifts: torch.Tensor,
+                  B: torch.Tensor) -> torch.Tensor:
+    """:func:`hess_solve`'s function through K2's first CUDA form: the
+    top-down Givens QR sweep in the TPU kernel's order, the triangular
+    factor packed in an O(K·N²) scratch, then the back substitution. On no
+    solver path; same arguments and contract."""
+    global LAUNCHES_QR
     _check(H, shifts, B)
     if B.device.type == "cpu":
         return hess_solve_plain(H, shifts, B)
     N = B.shape[1]
     W = _launch("maus_hess_solve", H, shifts, B, N * (N + 1) // 2,
                 _SHARED_ROW_BYTES)
-    LAUNCHES += 1
+    LAUNCHES_QR += 1
     return W
 
 
@@ -259,8 +424,8 @@ def _tiled_elems(N: int) -> int:
 
 def hess_solve_v2(H: torch.Tensor, shifts: torch.Tensor,
                   B: torch.Tensor) -> torch.Tensor:
-    """:func:`hess_solve`'s function through P1 (blocked back substitution);
-    same arguments and contract."""
+    """:func:`hess_solve_qr`'s function through P1 (blocked back
+    substitution); same arguments and contract."""
     global LAUNCHES_V2
     _check(H, shifts, B)
     if B.device.type == "cpu":
@@ -274,7 +439,7 @@ def hess_solve_v2(H: torch.Tensor, shifts: torch.Tensor,
 
 def hess_solve_v3(H: torch.Tensor, shifts: torch.Tensor,
                   B: torch.Tensor) -> torch.Tensor:
-    """:func:`hess_solve`'s function through P2 (divide-free sweep, tiled R,
+    """:func:`hess_solve_qr`'s function through P2 (divide-free sweep, tiled R,
     blocked back substitution with reciprocal diagonals); same arguments and
     contract."""
     global LAUNCHES_V3

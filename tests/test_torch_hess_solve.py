@@ -1,12 +1,15 @@
-"""Kernel K2 (the batched shifted Hessenberg solve) and the solves around it,
+"""K2's QR form (``hess_solve_qr``, CUDA source ``csrc/hess_solve.cu``: the
+top-down Givens sweep in the TPU kernel's order, on no solver path), the
+wrapper checks K2 shares with it, and the eig path's solves around K2,
 against the JAX package on the same numpy inputs.
 
-On the CPU the port's wrapper runs the kernel's plain version. It is held to
+On the CPU ``hess_solve_qr`` runs its kernel's plain version. It is held to
 the JAX package's ``_hess_solve_scan`` in complex128 (same rotations, same
 order: 1e-12 relative), and to the Pallas kernel run in interpret mode at the
 relative-residual bar tests/test_pallas.py holds that kernel to (5e-5 in
 complex64). The kernel itself runs only on a CUDA card (the ``cuda`` tests
-below, which skip here)."""
+below, which skip here). K2 as the solver path runs it, the RQ sweep, is
+tested in tests/test_torch_hess_solve_rq.py."""
 import numpy as np
 import pytest
 import torch
@@ -54,10 +57,10 @@ def test_plain_matches_jax_scan(k, n):
     else:
         w_j = np.asarray(hj._hess_solve_scan(jnp.asarray(H), jnp.asarray(lams),
                                              jnp.asarray(B)))
-    launches = hess_solve.LAUNCHES
-    w_t = hess_solve.hess_solve(torch.from_numpy(H), torch.from_numpy(-lams),
-                                torch.from_numpy(B)).numpy()
-    assert hess_solve.LAUNCHES == launches      # the plain version does not count
+    launches = hess_solve.LAUNCHES_QR
+    w_t = hess_solve.hess_solve_qr(torch.from_numpy(H), torch.from_numpy(-lams),
+                                   torch.from_numpy(B)).numpy()
+    assert hess_solve.LAUNCHES_QR == launches   # the plain version does not count
     assert np.linalg.norm(w_t - w_j) <= 1e-12 * np.linalg.norm(w_j)
     assert np.max(_rel_residual(H, -lams, w_t, B)) <= 1e-12
 
@@ -72,8 +75,8 @@ def test_plain_matches_interpret_mode_pallas():
                      B.astype(np.complex64))
     w_p = np.asarray(hess_solve_batched_pallas(
         jnp.asarray(H64), jnp.asarray(s64), jnp.asarray(B64), interpret=True))
-    w_t = hess_solve.hess_solve(torch.from_numpy(H64), torch.from_numpy(s64),
-                                torch.from_numpy(B64)).numpy()
+    w_t = hess_solve.hess_solve_qr(torch.from_numpy(H64), torch.from_numpy(s64),
+                                   torch.from_numpy(B64)).numpy()
     assert w_t.dtype == np.complex64
     assert np.max(_rel_residual(H, -lams, w_p, B)) < 5e-5
     assert np.max(_rel_residual(H, -lams, w_t, B)) < 5e-5
@@ -90,8 +93,8 @@ def test_exact_zero_pivot_gives_non_finite_rows(dtype):
     H[0, 1] = 1.0
     shifts = np.zeros(2, dtype)
     B = np.ones((2, 5), dtype)
-    w_t = hess_solve.hess_solve(torch.from_numpy(H), torch.from_numpy(shifts),
-                                torch.from_numpy(B))
+    w_t = hess_solve.hess_solve_qr(torch.from_numpy(H), torch.from_numpy(shifts),
+                                   torch.from_numpy(B))
     assert not torch.isfinite(torch.view_as_real(w_t)).all(dim=-1).all(dim=-1).any()
     w_j = np.asarray(hj._hess_solve_scan(jnp.asarray(H), jnp.asarray(-shifts),
                                          jnp.asarray(B)))
@@ -171,10 +174,10 @@ def test_kernel_matches_plain_on_card(dtype, k, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
     H, s, B = _card_problem(k, n, dtype)
-    launches = hess_solve.LAUNCHES
-    w_k = hess_solve.hess_solve(H, s, B)
+    launches = hess_solve.LAUNCHES_QR
+    w_k = hess_solve.hess_solve_qr(H, s, B)
     torch.cuda.synchronize()
-    assert hess_solve.LAUNCHES == launches + 1
+    assert hess_solve.LAUNCHES_QR == launches + 1
     w_p = hess_solve.hess_solve_plain(H, s, B)
     bar = 5e-5 if dtype == torch.complex64 else 1e-12
     Hh = torch.triu(H, diagonal=-1)
@@ -190,8 +193,9 @@ def test_kernel_zero_pivot_on_card():
         pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
     H = torch.zeros((5, 5), dtype=torch.complex64, device="cuda")
     H[0, 1] = 1.0
-    w = hess_solve.hess_solve(H, torch.zeros(2, dtype=torch.complex64, device="cuda"),
-                              torch.ones((2, 5), dtype=torch.complex64, device="cuda"))
+    w = hess_solve.hess_solve_qr(
+        H, torch.zeros(2, dtype=torch.complex64, device="cuda"),
+        torch.ones((2, 5), dtype=torch.complex64, device="cuda"))
     assert not torch.isfinite(torch.view_as_real(w)).all(dim=-1).all(dim=-1).any()
 
 
@@ -210,7 +214,7 @@ def test_kernel_carried_row_in_global_memory_on_card():
         + 3.0 * torch.eye(n, dtype=torch.complex128, device="cuda")
     s = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device="cuda")
     B = torch.randn(1, n, generator=g, dtype=torch.complex128, device="cuda")
-    w = hess_solve.hess_solve(H, s, B)
+    w = hess_solve.hess_solve_qr(H, s, B)
     torch.cuda.synchronize()
     r = torch.linalg.vector_norm(w @ torch.triu(H, diagonal=-1).T + s[:, None] * w - B)
     assert float(r / torch.linalg.vector_norm(B)) <= 1e-12
