@@ -46,10 +46,16 @@ Phases, each printing its own lines:
      every shifted solve through the RQ kernel (none through the QR kernel,
      P1 or P2), with the launch counts of K2, P3, P4 and K3 and the peak
      device memory; one first run, then one timed warm run;
-  7. K3 (the complex GEMM) against its plain version at 4096³, at the
-     blocked LU's first trailing update at (8, 2048) and at ragged shapes,
-     within 4·K·ε·max|a|·max|b|, with the times of the kernel, the plain
-     version and torch.matmul (torch.baddbmm for the update);
+  7. K3 (the complex GEMM; complex64 on the tensor cores with split-TF32
+     products, complex128 on PR 3's CUDA-core body) against its plain
+     version at 4096³, at the blocked LU's first trailing updates at
+     (8, 2048) and (8, 4096), at two of its last ones (M = 64, 192) and at
+     ragged shapes, within
+     4·K·ε·max|a|·max|b|, PR 3's body for complex64 (cgemm_simt) beside
+     it; the kernel's registers, spills, CTAs a SM and shared memory; the
+     times of K3, PR 3's body and torch.matmul (torch.baddbmm for the
+     updates) in turns, of the plain version, and both bounds (split-TF32
+     on the tensor cores, FP32 FMAs);
   8. P3/P4 (the batched LU) against the plain version: the cluster panel
      kernel's cudaOccupancyMaxActiveClusters by cluster size and the size
      chosen at (8, 2048) and (8, 4096), and the time of one cluster barrier;
@@ -59,8 +65,9 @@ Phases, each printing its own lines:
      backward error of torch.linalg.lu_solve on the kernel's factors, the
      pivots, and the zero-pivot contract; the panel [0, 64) of (8, 4096) on
      the cluster kernel and on the one-block kernel, each with the plain
-     version's pivots; with the times of the kernels, the plain versions
-     and torch.linalg.lu_factor, kernel and library in turns;
+     version's pivots; with the times of the kernels (P4 beside PR 5's),
+     the plain versions and torch.linalg.lu_factor, kernel and library in
+     turns, and P4's device time by kernel;
   9. maus_tpu_torch.svd of A = U·diag(σ)·Vᴴ at 4096×2048 (σ = 0.8^k for
      k < 16, then logspace(−2, −4)), 32 candidates, 16 targets, tol 1e-6:
      ≥ 16 distinct triplets, the 16 largest σ within 1e-8 of 0.8^k and at
@@ -76,6 +83,8 @@ Phases, each printing its own lines:
  11. the same at 2048², one run: the shared-eigh branch (no Lanczos call);
  12. maus_tpu_torch.cli.main(["scenarios"]) on the card: exit code 0 and the
      reference's four scenarios passed at 1/1, 8/8, 8/8 and 2/2.
+On every solver path K3 launches once for each trailing update of the
+path's LUs, and PR 3's CUDA-core body never (checked).
 Then a JSON line with the kernel table, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises, so the script exits
 non-zero and prints no result line; so does a machine without CUDA.
@@ -112,6 +121,9 @@ LU_BATCH = 8                 # the finishers' chunk of per-candidate systems
 # PR 2's eig finisher on the same card type (PERF.md §5): the 4096² eig's
 # finish_s with torch.linalg.lu_factor, first smoke run and final run
 PR2_FINISH_S = (1.880, 2.094)
+# P4 at (8, 2048) and (8, 4096) in PR 5's first full smoke run (PERF.md §6),
+# its trailing updates on K3's CUDA-core body
+PR5_P4_MS = {2048: 12.714, 4096: 60.693}
 # the smallest complex128 N whose carried row leaves the QR kernel's shared
 # memory (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES), past
 # which the RQ kernel's rows beyond the register fit also leave shared
@@ -131,6 +143,8 @@ SCENARIO_COUNTS = ["1/1", "8/8", "8/8", "2/2"]
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
+# the dense TF32 tensor-core rate, which K3's split-TF32 products use
+TF32_FLOPS = 495e12
 
 
 def say(phase, msg):
@@ -415,13 +429,15 @@ def cnormal(gen, shape, dtype, device):
                          torch.randn(*shape, generator=gen, dtype=rdt, device=device))
 
 
-def check_cgemm(cgemm, a, b, label):
-    """K3 against its plain version: max|Δ| ≤ 4·K·ε·max|a|·max|b| (one
-    rounding per FMA along K, c = 4 for the four real products of the
-    complex product). Returns (max|Δ|, bar)."""
+def check_cgemm(fn, cgemm, a, b, label):
+    """A K3 kernel (``fn``: cgemm.cgemm, or PR 3's body cgemm.cgemm_simt)
+    against its plain version: max|Δ| ≤ 4·K·ε·max|a|·max|b| (one rounding
+    per FMA along K, c = 4 for the four real products of the complex
+    product; the split-TF32 products of the tensor-core kernel keep within
+    it, csrc/cgemm_tc.cu). Returns (max|Δ|, bar)."""
     import torch
 
-    got = cgemm.cgemm(a, b)
+    got = fn(a, b)
     want = cgemm.cgemm_plain(a, b)
     torch.cuda.synchronize()
     eps = torch.finfo(a.real.dtype).eps
@@ -617,6 +633,7 @@ def main():
 
     def reset_counts():
         residual.LAUNCHES = hess_solve.LAUNCHES = cgemm.LAUNCHES = 0
+        cgemm.LAUNCHES_SIMT = 0
         hess_solve.LAUNCHES_QR = 0
         hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
         lu.LAUNCHES = lu.PANEL_LAUNCHES = lu.CLUSTER_PANEL_LAUNCHES = 0
@@ -628,7 +645,17 @@ def main():
                     P2=hess_solve.LAUNCHES_V3,
                     P3_panel=lu.PANEL_LAUNCHES, P3_cluster=lu.CLUSTER_PANEL_LAUNCHES,
                     P4_blocked=lu.LAUNCHES,
-                    K3=cgemm.LAUNCHES, lanczos_calls=lanczos.CALLS)
+                    K3=cgemm.LAUNCHES, K3_simt=cgemm.LAUNCHES_SIMT,
+                    lanczos_calls=lanczos.CALLS)
+
+    def check_k3_counts(c, n, label):
+        """Every trailing update of the path's LUs (⌈n/64⌉ − 1 a
+        factorization of order n) went through K3, none through PR 3's
+        body."""
+        want = c["P4_blocked"] * (-(-n // lu.NB) - 1)
+        if c["K3"] != want or c["K3_simt"] != 0:
+            raise AssertionError(f"{label}: K3 launched {c['K3']} times (want "
+                                 f"{want}), PR 3's body {c['K3_simt']} times")
 
     dev = torch.device("cuda")
     card = card_line()
@@ -966,6 +993,7 @@ def main():
     reset_counts()
     first = eig_and_check(maus_tpu_torch, hess_solve, A, "4096² eig")
     eig_counts = counts()
+    check_k3_counts(eig_counts, EIG_N, f"{EIG_N}² eig")
     eig_launches = eig_counts["K2"]
     say(6, f"launches on the eig path: {eig_counts}")
     if eig_counts["P4_blocked"] <= 0 or eig_counts["P3_cluster"] <= 0:
@@ -998,56 +1026,124 @@ def main():
     del A
 
     # ---- phase 7: K3 against its plain version -----------------------------
+    # complex64 runs on the tensor cores (split TF32), complex128 on PR 3's
+    # CUDA-core body; that body's complex64 form (cgemm_simt) is the A/B
     for (m, k, n, dtype) in ((1, 1, 1, torch.complex64), (100, 130, 50, torch.complex64),
                              (8, 128, 128, torch.complex64),
+                             (65, 17, 129, torch.complex64),
                              (1000, 777, 513, torch.complex128)):
         a = cnormal(gen, (m, k), dtype, dev)
         b = cnormal(gen, (k, n), dtype, dev)
-        err, bar = check_cgemm(cgemm, a, b, f"({m}, {k}, {n})")
-        say(7, f"K3 vs plain (M, K, N) = ({m}, {k}, {n}) {str(dtype)[6:]}: "
-               f"max|Δ| {err:.3e} <= {bar:.3e}")
+        err, bar = check_cgemm(cgemm.cgemm, cgemm, a, b, f"({m}, {k}, {n})")
+        line = (f"K3 vs plain (M, K, N) = ({m}, {k}, {n}) {str(dtype)[6:]}: "
+                f"max|Δ| {err:.3e} <= {bar:.3e}")
+        if dtype == torch.complex64:
+            s_err, _ = check_cgemm(cgemm.cgemm_simt, cgemm, a, b, f"SIMT ({m}, {k}, {n})")
+            line += f" (err/bar {err / bar:.3f}; PR 3's body {s_err:.3e})"
+        say(7, line)
+    for width in (16, 8):
+        attrs = (ctypes.c_int * 4)()
+        err = build.library().maus_cgemm_tc_attrs(width, attrs)
+        if err != 0:
+            raise RuntimeError(f"maus_cgemm_tc_attrs: CUDA error {err}")
+        say(7, f"K3 (64×64 tiles), {width}-byte copies: {attrs[0]} registers, "
+               f"{attrs[1]} bytes local (spilled), {attrs[2]} CTAs a SM, "
+               f"{attrs[3]} bytes of shared memory")
     n = HEADLINE_N
     a = cnormal(gen, (n, n), torch.complex64, dev)
     b = cnormal(gen, (n, n), torch.complex64, dev)
-    err, bar = check_cgemm(cgemm, a, b, f"{n}³")
-    g_ms = time_ms(lambda: cgemm.cgemm(a, b), reps=10)
-    g_plain = time_ms(lambda: cgemm.cgemm_plain(a, b), reps=10)
-    g_lib = time_ms(lambda: a @ b, reps=10)
-    g_bound, g_by = bound_ms(3 * n * n * 8, 8 * n ** 3, FP32_FLOPS)
-    say(7, f"K3 {n}³ complex64: max|Δ| {err:.3e} <= {bar:.3e}; kernel {g_ms:.3f} ms "
-           f"({8 * n ** 3 / g_ms / 1e9:.1f} TFLOP/s), plain {g_plain:.3f} ms, "
-           f"torch.matmul {g_lib:.3f} ms, bound {g_bound:.3f} ms ({g_by})")
-    del a, b
-    # the blocked LU's first trailing update at (8, 2048): C = X[:, e:, e:],
-    # A = X[:, e:, s:e], B = X[:, s:e, e:] in one buffer, α = −1, β = 1
-    K, n, e = LU_BATCH, SVD_N, lu.NB
-    X = cnormal(gen, (K, n, n), torch.complex64, dev)
-    Xk, Xp = X.clone(), X.clone()
-    cgemm.cgemm_update(Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:], -1.0, 1.0)
-    cgemm.cgemm_update_plain(Xp[:, e:, e:], Xp[:, e:, :e], Xp[:, :e, e:], -1.0, 1.0)
-    torch.cuda.synchronize()
+    err, bar = check_cgemm(cgemm.cgemm, cgemm, a, b, f"{n}³")
+    s_err, _ = check_cgemm(cgemm.cgemm_simt, cgemm, a, b, f"SIMT {n}³")
+    # the accumulation's error, against a complex128 product
+    exact = a.to(torch.complex128) @ b.to(torch.complex128)
+    vs_exact = {name: float((fn(a, b) - exact).abs().max()) / bar for name, fn in (
+        ("K3", cgemm.cgemm), ("PR 3's body", cgemm.cgemm_simt),
+        ("torch.matmul", lambda x, y: x @ y))}
+    del exact
+    out = torch.empty_like(a)
+    turns = {"K3": [], "SIMT": [], "matmul": []}
+    for _ in range(2):      # in turns, on the same inputs
+        turns["K3"].append(time_ms(lambda: cgemm.cgemm_update(out, a, b), reps=10))
+        turns["SIMT"].append(time_ms(lambda: cgemm.cgemm_update_simt(out, a, b), reps=10))
+        turns["matmul"].append(time_ms(lambda: a @ b, reps=10))
+    g_plain = time_ms(lambda: cgemm.cgemm_plain(a, b), reps=5)
+    g_bytes = 3 * n * n * 8
+    g_fma, _ = bound_ms(g_bytes, 8 * n ** 3, FP32_FLOPS)
+    g_tc, g_by = bound_ms(g_bytes, 24 * n ** 3, TF32_FLOPS)
+    g_ms = min(turns["K3"])
+    say(7, f"K3 {n}³ complex64: max|Δ| {err:.3e} <= {bar:.3e} (PR 3's body "
+           f"{s_err:.3e}); in turns, K3 {[round(t, 3) for t in turns['K3']]} ms "
+           f"({8 * n ** 3 / g_ms / 1e9:.1f} TFLOP/s of complex products, "
+           f"{24 * n ** 3 / g_ms / 1e9:.1f} TFLOP/s on the tensor cores), PR 3's "
+           f"body {[round(t, 3) for t in turns['SIMT']]} ms, torch.matmul "
+           f"{[round(t, 3) for t in turns['matmul']]} ms; plain {g_plain:.3f} ms; "
+           f"max|Δ| against complex128 over the bar "
+           f"{ {k: round(v, 4) for k, v in vs_exact.items()} }; bound split-TF32 {g_tc:.3f} ms ({g_by}), "
+           f"FP32-FMA {g_fma:.3f} ms")
+    if not max(turns["K3"]) < min(turns["SIMT"]):
+        raise AssertionError(f"K3 at {n}³ is not faster than PR 3's body: {turns}")
+    if not max(turns["K3"]) <= min(turns["matmul"]):
+        say(7, f"K3 at {n}³ is slower than torch.matmul in a turn: {turns}")
+    del a, b, out
+    # the blocked LU's first trailing update at (8, 2048) and (8, 4096), and
+    # two of its last ones, M = 64 and 192 (as in every LU of the finishers):
+    # C = X[:, e:, e:], A = X[:, e:, s:e], B = X[:, s:e, e:] in one buffer,
+    # α = −1, β = 1
     eps32 = torch.finfo(torch.float32).eps
-    u_err = float((Xk - Xp).abs().max())
-    u_bar = 4 * e * eps32 * float(X.abs().max()) ** 2 + 2 * eps32 * float(X.abs().max())
-    if not u_err <= u_bar:
-        raise AssertionError(f"K3 trailing update: max|Δ| {u_err:.3e} > {u_bar:.3e}")
-    del Xp
-    u_ms = time_ms(lambda: cgemm.cgemm_update(Xk[:, e:, e:], Xk[:, e:, :e],
-                                              Xk[:, :e, e:], -1.0, 1.0))
-    u_plain = time_ms(lambda: cgemm.cgemm_update_plain(
-        Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:], -1.0, 1.0))
-    u_lib = time_ms(lambda: torch.baddbmm(Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:],
-                                          beta=1, alpha=-1))
-    m_ = n - e
-    u_flops = 8 * K * m_ * m_ * e
-    u_bytes = (K * (2 * m_ * e) + 2 * K * m_ * m_) * 8
-    u_bound, u_by = bound_ms(u_bytes, u_flops, FP32_FLOPS)
-    say(7, f"K3 first trailing update of the ({K}, {n}) LU, (batch, M, N, K) = "
-           f"({K}, {m_}, {m_}, {e}): max|Δ| {u_err:.3e} <= {u_bar:.3e}; kernel "
-           f"{u_ms:.4f} ms, plain {u_plain:.4f} ms, torch.baddbmm {u_lib:.4f} ms, "
-           f"bound {u_bound:.4f} ms ({u_by})")
-    del X, Xk
-    torch.cuda.empty_cache()
+    update_rows = {}
+    for n in (SVD_N, EIG_N, 2 * lu.NB, 4 * lu.NB):
+        K, e = LU_BATCH, lu.NB
+        which = "first" if n in (SVD_N, EIG_N) else "last"
+        X = cnormal(gen, (K, n, n), torch.complex64, dev)
+        Xp = X.clone()
+        cgemm.cgemm_update_plain(Xp[:, e:, e:], Xp[:, e:, :e], Xp[:, :e, e:], -1.0, 1.0)
+        amax = float(X.abs().max())
+        u_bar = 4 * e * eps32 * amax ** 2 + 2 * eps32 * amax
+        errs = {}
+        for name, fn in (("K3", cgemm.cgemm_update), ("SIMT", cgemm.cgemm_update_simt)):
+            Xk = X.clone()
+            fn(Xk[:, e:, e:], Xk[:, e:, :e], Xk[:, :e, e:], -1.0, 1.0)
+            torch.cuda.synchronize()
+            errs[name] = float((Xk - Xp).abs().max())
+            if not errs[name] <= u_bar:
+                raise AssertionError(f"{name} trailing update at ({K}, {n}): max|Δ| "
+                                     f"{errs[name]:.3e} > {u_bar:.3e}")
+            del Xk
+        del Xp
+        C_, A_, B_ = X[:, e:, e:], X[:, e:, :e], X[:, :e, e:]
+        turns = {"K3": [], "SIMT": [], "baddbmm": []}
+        for _ in range(2):
+            turns["K3"].append(time_ms(
+                lambda: cgemm.cgemm_update(C_, A_, B_, -1.0, 1.0)))
+            turns["SIMT"].append(time_ms(
+                lambda: cgemm.cgemm_update_simt(C_, A_, B_, -1.0, 1.0)))
+            turns["baddbmm"].append(time_ms(
+                lambda: torch.baddbmm(C_, A_, B_, beta=1, alpha=-1)))
+        u_plain = time_ms(lambda: cgemm.cgemm_update_plain(C_, A_, B_, -1.0, 1.0))
+        m_ = n - e
+        u_bytes = (K * (2 * m_ * e) + 2 * K * m_ * m_) * 8
+        u_fma, u_fma_by = bound_ms(u_bytes, 8 * K * m_ * m_ * e, FP32_FLOPS)
+        u_tc, u_by = bound_ms(u_bytes, 24 * K * m_ * m_ * e, TF32_FLOPS)
+        update_rows[n] = dict(err=errs["K3"], simt_err=errs["SIMT"],
+                              ms=min(turns["K3"]), simt_ms=min(turns["SIMT"]),
+                              library_ms=min(turns["baddbmm"]), plain_ms=u_plain,
+                              bound_ms=u_tc, bound_by=u_by)
+        say(7, f"K3 {which} trailing update of the LU, (batch, M, N, K) = "
+               f"({K}, {m_}, {m_}, {e}): max|Δ| {errs['K3']:.3e} <= {u_bar:.3e} "
+               f"(PR 3's body {errs['SIMT']:.3e}); in turns, K3 "
+               f"{[round(t, 4) for t in turns['K3']]} ms, PR 3's body "
+               f"{[round(t, 4) for t in turns['SIMT']]} ms, torch.baddbmm "
+               f"{[round(t, 4) for t in turns['baddbmm']]} ms; plain {u_plain:.4f} ms; bound split-TF32 {u_tc:.4f} ms ({u_by}), "
+               f"FP32-FMA {u_fma:.4f} ms ({u_fma_by})")
+        if which == "last":
+            if not max(turns["K3"]) <= min(turns["baddbmm"]):
+                say(7, f"K3's update at ({K}, {m_}, {m_}, {e}) is slower than "
+                       f"torch.baddbmm in a turn: {turns}")
+        elif not max(turns["K3"]) < min(min(turns["SIMT"]), min(turns["baddbmm"])):
+            raise AssertionError(f"K3's update at ({K}, {n}) is not faster than PR 3's "
+                                 f"body and torch.baddbmm: {turns}")
+        del X, C_, A_, B_
+        torch.cuda.empty_cache()
 
     # ---- phase 8: P3/P4 against the plain version --------------------------
     lu_rows = {}
@@ -1109,8 +1205,9 @@ def main():
         t_k2 = time_ms(lambda: lu.lu_factor(H), reps=3)
         t_l2 = time_ms(lambda: torch.linalg.lu_factor(H), reps=2)
         t_p = time_ms(lambda: lu.lu_factor_plain(H), reps=2 if N < 4096 else 1)
-        bnd, by = bound_ms(2 * LU_BATCH * N * N * 8, 8 / 3 * LU_BATCH * N ** 3,
-                           FP32_FLOPS)
+        # 8/3·K·N³ real flops, nearly all in K3's split-TF32 products (three
+        # tensor flops each)
+        bnd, by = bound_ms(2 * LU_BATCH * N * N * 8, 8 * LU_BATCH * N ** 3, TF32_FLOPS)
         lu_rows[N] = dict(r, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bnd,
                           bound_by=by)
         say(8, f"P4 vs plain {label} complex64: backward error kernel "
@@ -1118,7 +1215,8 @@ def main():
                f"{r['solve_berr']:.3e} (bar {r['bar']:.3e}); pivots differing "
                f"{r['piv_mismatch']} (first differing column per matrix "
                f"{r['first_mismatch']}); max|Δ| {r['max_abs_err']:.3e}; kernel "
-               f"{t_k:.3f} ms (again {t_k2:.3f} ms), torch.linalg.lu_factor "
+               f"{t_k:.3f} ms (again {t_k2:.3f} ms; PR 5, K3 on the CUDA cores: "
+               f"{PR5_P4_MS[N]} ms), torch.linalg.lu_factor "
                f"{t_l:.3f} ms (again {t_l2:.3f} ms), plain {t_p:.1f} ms, bound "
                f"{bnd:.3f} ms ({by})")
         if not max(t_k, t_k2) < min(t_l, t_l2):
@@ -1245,6 +1343,7 @@ def main():
     reset_counts()
     first = svd_and_check(maus_tpu_torch, A_svd, sig, f"{SVD_M}×{SVD_N} svd")
     svd_counts = counts()
+    check_k3_counts(svd_counts, SVD_N, f"{SVD_M}×{SVD_N} svd")
     say(9, f"launches on the SVD path: {svd_counts}")
     for name in ("P3_cluster", "P4_blocked", "K3"):
         if svd_counts[name] <= 0:
@@ -1274,6 +1373,7 @@ def main():
     first = eig_and_check(maus_tpu_torch, hess_solve, A, f"{EIG_N}² Hermitian eig",
                           hermitian=True)
     herm_counts = counts()
+    check_k3_counts(herm_counts, EIG_N, f"{EIG_N}² Hermitian eig")
     say(10, f"launches on the Hermitian (Lanczos) eig path: {herm_counts}")
     if herm_counts["P4_blocked"] <= 0 or herm_counts["lanczos_calls"] <= 0 or \
             herm_counts["P3_cluster"] <= 0:
@@ -1305,6 +1405,7 @@ def main():
     small = eig_and_check(maus_tpu_torch, hess_solve, A,
                           f"{HERM_SMALL_N}² Hermitian eig", hermitian=True)
     small_counts = counts()
+    check_k3_counts(small_counts, HERM_SMALL_N, f"{HERM_SMALL_N}² Hermitian eig")
     if small_counts["lanczos_calls"] != 0 or small_counts["P4_blocked"] <= 0 or \
             small_counts["P3_cluster"] <= 0:
         raise AssertionError(f"the {HERM_SMALL_N}² Hermitian eig called Lanczos "
@@ -1340,6 +1441,7 @@ def main():
                              f"(want {SCENARIO_COUNTS})")
     say(12, f"scenarios: exit code 0, four passed in {wall:.2f} s")
 
+    k3u = update_rows[SVD_N]
     k64 = kernel_rows[torch.complex64]
     k1_bound, k1_by = bound_ms(k64["nbytes"], k64["flops"], FP64_FLOPS)
     print(json.dumps({"kernels": [{
@@ -1366,11 +1468,16 @@ def main():
              "benchmarks/hess_v2_probe.py:168"),
             ("P2", "hess_solve_v3", "hess_solve_v3",
              "benchmarks/hess_v3_probe.py:187"))], {
-        "name": "cgemm", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm.cu",
+        "name": "cgemm", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm_tc.cu",
         "replaces": "maus_tpu/ops/pallas/cgemm.py:57",
-        "launches": svd_counts["K3"], "max_abs_err": u_err, "ms": u_ms,
-        "plain_ms": u_plain, "bound_ms": u_bound, "bound_by": u_by,
-        "library_ms": u_lib}, {
+        "launches": svd_counts["K3"], "max_abs_err": k3u["err"], "ms": k3u["ms"],
+        "plain_ms": k3u["plain_ms"], "bound_ms": k3u["bound_ms"],
+        "bound_by": k3u["bound_by"], "library_ms": k3u["library_ms"]}, {
+        "name": "cgemm_simt", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm.cu",
+        "replaces": "maus_tpu/ops/pallas/cgemm.py:57",
+        "launches": svd_counts["K3_simt"], "max_abs_err": k3u["simt_err"],
+        "ms": k3u["simt_ms"], "plain_ms": k3u["plain_ms"], "bound_ms": k3u["bound_ms"],
+        "bound_by": k3u["bound_by"], "library_ms": k3u["library_ms"]}, {
         "name": "lu_panel", "route": "cuda", "source": "maus_tpu_torch/csrc/lu.cu",
         "replaces": "benchmarks/parked/pallas_lu.py:103",
         "launches": svd_counts["P3_cluster"],

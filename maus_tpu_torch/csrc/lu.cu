@@ -89,14 +89,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cgemm.cuh"
+
 namespace cg = cooperative_groups;
 
-extern "C" int maus_cgemm(const void* A, const void* B, void* C, int is_c128,
-                          int batch, int M, int N, int K, long long lda,
-                          long long ldb, long long ldc, long long sA,
-                          long long sB, long long sC, double alpha_re,
-                          double alpha_im, double beta_re, double beta_im,
-                          void* stream);
 
 namespace {
 

@@ -22,8 +22,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("true_residual.cu", "hess_solve_rq.cu", "hess_solve.cu",
-           "hess_solve_v2.cu", "hess_solve_v3.cu", "cgemm.cu", "lu.cu")
-HEADERS = ("hess_common.cuh", "hess_blocked.cuh")
+           "hess_solve_v2.cu", "hess_solve_v3.cu", "cgemm.cu", "cgemm_tc.cu",
+           "lu.cu")
+HEADERS = ("hess_common.cuh", "hess_blocked.cuh", "cgemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -107,6 +108,9 @@ def library() -> ctypes.CDLL:
             for name, args in (
                     ("maus_cgemm", [ptr] * 3 + [i32] * 5 + [i64] * 6
                      + [f64] * 4 + [ptr]),
+                    ("maus_cgemm_simt", [ptr] * 3 + [i32] * 5 + [i64] * 6
+                     + [f64] * 4 + [ptr]),
+                    ("maus_cgemm_tc_attrs", [i32, ptr]),
                     ("maus_lu_panel", [ptr, ptr] + [i32] * 5 + [ptr]),
                     ("maus_lu_panel_cluster", [ptr, ptr] + [i32] * 6 + [ptr]),
                     ("maus_lu_cluster_occupancy", [i32] * 4 + [ptr]),
