@@ -7,7 +7,8 @@ K1); 16 eigenpairs of a general complex64 4096² operand to 1e-8 (kernel K2, and
 blocked LU P3/P4 with the complex GEMM K3 in its finisher); 16 singular
 triplets of a 4096×2048 operand to 1e-6 (P3, P4 and K3 in its finisher);
 K2's RQ kernel beside its QR form and the QR form's two blocked variants P1
-and P2, which the JAX package's probes run as an A/B; 16 eigenpairs of a
+and P2 (beside the row-loop bodies of them), which the JAX package's probes run
+as an A/B; 16 eigenpairs of a
 Hermitian complex64 operand at 4096² (deflated Lanczos) and 2048² (shared
 eigh), both finished through P4; and the reference's four scenarios through
 the CLI.
@@ -16,7 +17,8 @@ the CLI.
 
 Phases, each printing its own lines:
   0. the card, as nvidia-smi names it, with its power limit;
-  1. build kernels K1, K2 (and its QR form), P1, P2, K3, P3 and P4 from
+  1. build kernels K1, K2 (and its QR form), P1, P2 (and the row-loop bodies),
+     K3, P3 and P4 from
      maus_tpu_torch/csrc/ (one nvcc per source, all started together);
   2. K1 (the true-FP64 residual) against its plain PyTorch version at the
      main path's shapes and a few ragged ones, within 1e-15·‖A‖_F·‖x‖, and
@@ -31,20 +33,29 @@ Phases, each printing its own lines:
      memory, global memory at N = 10241 complex128 and N = 17857 complex64),
      by the relative residual ‖(H + s_k I)w_k − b_k‖/‖b_k‖ and the normwise
      backward error, with the zero-pivot contract; K2's QR kernel (its first
-     form), P1 and P2 (the QR kernel with a blocked back substitution; P2
-     also divide-free, with R in column tiles) held the same way on the same
-     inputs and shapes; the median times at the slice shape of the RQ kernel
-     by block size, its step's latency floor, the plain version,
+     form), P1 and P2 (the QR kernel's function with a blocked back
+     substitution, redesigned: a streaming sweep and a cluster back
+     substitution; P2 also divide-free, with R in column tiles) and their
+     row-loop bodies (the first CUDA form) held the same way on the same inputs and shapes, P1
+     and P2 also at every cluster size (one CTA where N <= 128, as
+     planned; 2-8 at N = 1000), with the carried row in global
+     memory (N = 16673 complex128; the row-loop bodies at N = 8193) and a zero
+     pivot in a later block; the median times at the slice shape of the RQ
+     kernel by block size, its step's latency floor, the plain version,
      torch.linalg.solve (dense batched LU) and the call's extra device
-     memory; the A/B of the QR kernel, P1 and P2 beside it as the JAX probes
-     run it (the QR-vs-P1/P2 differences, each kernel's and plain version's
-     time); and one call of each design at (32, 16384), with its time and
-     the device memory it adds;
+     memory; the A/B of the QR kernel, P1, P2 and the row-loop bodies beside it
+     as the JAX probes run it, in two turns (the QR-vs-P differences, each
+     kernel's and plain version's time); P1 and P2 split into their sweep
+     and back substitution (the row-loop bodies: sweep-only mode, the back
+     substitution by difference), the R-traffic floor, the time at K = 1,
+     raising if a redesign is under 2× faster than the row-loop body; and one
+     call of each design at (32, 16384), with its time, residual and the
+     device memory it adds (again raising under 2×);
   6. maus_tpu_torch.eig of A = (G₁ + iG₂)/√N at 4096², complex64, 32
      candidates, 16 targets, tol 1e-8: ≥ 16 distinct pairs, the best 16 each
      at ≤ 1e-8 by an independent complex128 residual and pairwise distinct,
      every shifted solve through the RQ kernel (none through the QR kernel,
-     P1 or P2), with the launch counts of K2, P3, P4 and K3 and the peak
+     P1, P2 or the row-loop bodies), with the launch counts of K2, P3, P4 and K3 and the peak
      device memory; one first run, then one timed warm run;
   7. K3 (the complex GEMM; complex64 on the tensor cores with split-TF32
      products, complex128 on PR 3's CUDA-core body) against its plain
@@ -128,11 +139,14 @@ PR5_P4_MS = {2048: 12.714, 4096: 60.693}
 # memory (maus_tpu_torch/ops/kernels/hess_solve.py, _SHARED_ROW_BYTES), past
 # which the RQ kernel's rows beyond the register fit also leave shared
 # memory (rq_plan, 512 threads); the smallest complex64 N past which the RQ
-# kernel's do; and that of P1 and P2's carried row
-# (_SHARED_ROW_BYTES_BLOCKED)
+# kernel's do; that of the row-loop P1 and P2's carried row
+# (_SHARED_ROW_BYTES_BLOCKED); and the smallest complex128 N whose columns
+# past the redesigned sweep's register fit leave shared memory
+# (blocked_plan)
 K2_GLOBAL_ROW_N = 10241
 K2_GLOBAL_ROW_N_C64 = 17857
 BLOCKED_GLOBAL_ROW_N = 8193
+STREAM_GLOBAL_ROW_N = 16673
 # the 4096² eig with K2's QR kernel (PERF.md §5): iterations, distinct pairs
 QR_EIG = (6, 21)
 HERM_SMALL_N = 2048          # the shared-eigh branch (SolverConfig.eigh_max_n)
@@ -636,13 +650,18 @@ def main():
         cgemm.LAUNCHES_SIMT = 0
         hess_solve.LAUNCHES_QR = 0
         hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
+        hess_solve.LAUNCHES_V2_ROWLOOP = hess_solve.LAUNCHES_V3_ROWLOOP = 0
+        hess_solve.LAUNCHES_SWEEP = hess_solve.LAUNCHES_BACK = 0
         lu.LAUNCHES = lu.PANEL_LAUNCHES = lu.CLUSTER_PANEL_LAUNCHES = 0
         lanczos.CALLS = 0
 
     def counts():
         return dict(K1=residual.LAUNCHES, K2=hess_solve.LAUNCHES,
                     K2_QR=hess_solve.LAUNCHES_QR, P1=hess_solve.LAUNCHES_V2,
-                    P2=hess_solve.LAUNCHES_V3,
+                    P2=hess_solve.LAUNCHES_V3, P1_PR4=hess_solve.LAUNCHES_V2_ROWLOOP,
+                    P2_PR4=hess_solve.LAUNCHES_V3_ROWLOOP,
+                    P12_sweep=hess_solve.LAUNCHES_SWEEP,
+                    P12_back=hess_solve.LAUNCHES_BACK,
                     P3_panel=lu.PANEL_LAUNCHES, P3_cluster=lu.CLUSTER_PANEL_LAUNCHES,
                     P4_blocked=lu.LAUNCHES,
                     K3=cgemm.LAUNCHES, K3_simt=cgemm.LAUNCHES_SIMT,
@@ -766,13 +785,22 @@ def main():
                f"residual kernel {r['resid']:.3e}, backward error {r['berr']:.3e} "
                f"(bar {r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
         del r
-    # K2's QR kernel, and P1 and P2 (its function with a blocked back
-    # substitution), on the same inputs and held to the same bars (the JAX
-    # package's A/B probes, benchmarks/hess_v2_probe.py and hess_v3_probe.py,
-    # run P1 and P2 so)
+    # K2's QR kernel, P1 and P2 (its function with a blocked back
+    # substitution; redesigned: a streaming sweep and a cluster back
+    # substitution) and the row-loop body of each, on the same inputs and held to
+    # the same bars (the JAX package's A/B probes,
+    # benchmarks/hess_v2_probe.py and hess_v3_probe.py, run P1 and P2 so)
     variants = {"QR": (hess_solve.hess_solve_qr, hess_solve.hess_solve_plain),
                 "P1": (hess_solve.hess_solve_v2, hess_solve.hess_solve_v2_plain),
-                "P2": (hess_solve.hess_solve_v3, hess_solve.hess_solve_v3_plain)}
+                "P2": (hess_solve.hess_solve_v3, hess_solve.hess_solve_v3_plain),
+                "P1 rowloop": (hess_solve.hess_solve_v2_rowloop,
+                            hess_solve.hess_solve_v2_plain),
+                "P2 rowloop": (hess_solve.hess_solve_v3_rowloop,
+                            hess_solve.hess_solve_v3_plain)}
+    redesigned = {"P1": (hess_solve.hess_solve_v2, hess_solve.hess_solve_v2_plain,
+                         False),
+                  "P2": (hess_solve.hess_solve_v3, hess_solve.hess_solve_v3_plain,
+                         True)}
     pv = {}
     for name, (solve, plain) in variants.items():
         pv[name] = check_k2(solve, plain, H, shifts, B,
@@ -806,9 +834,24 @@ def main():
                f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
         for name, (solve, plain) in variants.items():
             r = check_k2(solve, plain, Hn, sn, Bn, f"{name} ({k}, {n}) {dtype}")
-            say(5, f"{name} vs plain ({k}, {n}) {str(dtype)[6:]}: residual kernel "
-                   f"{r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
+            where = ""
+            if name in redesigned:
+                plan = hess_solve.card_plan(k, n, dtype, redesigned[name][2])
+                where = f", carried row {plan['home']}, cluster {plan['cluster']}"
+            say(5, f"{name} vs plain ({k}, {n}) {str(dtype)[6:]}{where}: residual "
+                   f"kernel {r['resid']:.3e}, plain {r['plain_resid']:.3e} (bar "
                    f"{r['bar']:g}); max|Δ| {r['max_abs_err']:.3e}")
+        if (k, n) == (3, 1000):
+            # the redesign's back substitution at every cluster size
+            for name, (solve, plain, _) in redesigned.items():
+                worst = 0.0
+                for C in range(2, hess_solve.BLOCKED_MAX_CLUSTER + 1):
+                    r = check_k2(lambda H_, s_, B_: solve(H_, s_, B_, cluster=C), plain,
+                                 Hn, sn, Bn, f"{name} ({k}, {n}) cluster {C}")
+                    worst = max(worst, r["resid"])
+                say(5, f"{name} vs plain ({k}, {n}) {str(dtype)[6:]} at clusters 2-"
+                       f"{hess_solve.BLOCKED_MAX_CLUSTER}: worst residual {worst:.3e} "
+                       f"(bar {r['bar']:g})")
         del An, Hn, Bn
     # rows past the shared-memory fit: the RQ kernel's state and the QR
     # kernel's carried row in a global scratch, N = 10241 in complex128 (and
@@ -843,28 +886,45 @@ def main():
                    torch.ones(2, 5, dtype=torch.complex64, device=dev))
         if bool(torch.isfinite(torch.view_as_real(Wz)).all(dim=-1).all(dim=-1).any()):
             raise AssertionError(f"{name}: an exact-zero pivot gave a finite row")
-    say(5, "K2, QR, P1, P2 zero-pivot contract: every row of a singular shifted "
-           "H non-finite")
-    # P1's and P2's carried row in global memory (past their 128 KB budget),
-    # drawn from a generator of its own so that the later phases' draws stay
-    # those of earlier slices
+    # the redesign's zero pivot in the last of three blocks, on one CTA and
+    # on a cluster
+    Hz = torch.zeros(130, 130, dtype=torch.complex64, device=dev)
+    Hz[0, 1] = 1.0
+    for name, (solve, _, _) in redesigned.items():
+        for C in (2, 3):
+            Wz = solve(Hz, torch.zeros(2, dtype=torch.complex64, device=dev),
+                       torch.ones(2, 130, dtype=torch.complex64, device=dev), cluster=C)
+            if bool(torch.isfinite(torch.view_as_real(Wz)).all(dim=-1).all(dim=-1).any()):
+                raise AssertionError(f"{name} (N = 130, cluster {C}): an exact-zero "
+                                     f"pivot gave a finite row")
+    say(5, "K2, QR, P1, P2 and the row-loop P1, P2 zero-pivot contract: every row of a "
+           "singular shifted H non-finite (P1, P2 also at N = 130, clusters 2 and 3)")
+    # the carried row in global memory: the row-loop bodies past their 128 KB
+    # budget, the redesign past its shared-memory fit, drawn from a
+    # generator of its own so that the later phases' draws stay those of
+    # earlier slices
     gen_pv = torch.Generator(device=dev)
     gen_pv.manual_seed(SEED + 1)
-    n = BLOCKED_GLOBAL_ROW_N
-    Hg = torch.triu(torch.randn(n, n, generator=gen_pv, dtype=torch.complex128,
-                                device=dev), diagonal=-1) / n \
-        + 3.0 * torch.eye(n, dtype=torch.complex128, device=dev)
-    sg = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device=dev)
-    Bg = torch.randn(1, n, generator=gen_pv, dtype=torch.complex128, device=dev)
-    for name in ("P1", "P2"):
-        solve, plain = variants[name]
-        r = check_k2(solve, plain, Hg, sg, Bg, f"{name} (1, {n}) complex128")
-        say(5, f"{name} vs plain (1, {n}) complex128, carried row in global "
-               f"memory: residual kernel {r['resid']:.3e}, plain "
-               f"{r['plain_resid']:.3e} (bar {r['bar']:g}); max|Δ| "
-               f"{r['max_abs_err']:.3e}")
-    del Hg, Bg, r
-    torch.cuda.empty_cache()
+    for n, names in ((BLOCKED_GLOBAL_ROW_N, ("P1 rowloop", "P2 rowloop")),
+                     (STREAM_GLOBAL_ROW_N, ("P1", "P2"))):
+        Hg = torch.triu(torch.randn(n, n, generator=gen_pv, dtype=torch.complex128,
+                                    device=dev), diagonal=-1) / n \
+            + 3.0 * torch.eye(n, dtype=torch.complex128, device=dev)
+        sg = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device=dev)
+        Bg = torch.randn(1, n, generator=gen_pv, dtype=torch.complex128, device=dev)
+        for name in names:
+            solve, plain = variants[name]
+            if name in redesigned and \
+                    hess_solve.blocked_plan(1, n, torch.complex128)["home"] != "global":
+                raise AssertionError(f"{name} at (1, {n}) complex128: carried row not "
+                                     f"in global memory")
+            r = check_k2(solve, plain, Hg, sg, Bg, f"{name} (1, {n}) complex128")
+            say(5, f"{name} vs plain (1, {n}) complex128, carried row in global "
+                   f"memory: residual kernel {r['resid']:.3e}, plain "
+                   f"{r['plain_resid']:.3e} (bar {r['bar']:g}); max|Δ| "
+                   f"{r['max_abs_err']:.3e}")
+        del Hg, Bg, r
+        torch.cuda.empty_cache()
     # times at the eig slice shape: the RQ kernel at each block size, the
     # latency floor of its step, the plain version and the library call;
     # then K2's QR kernel, P1 and P2 beside it (the A/B of the JAX probes,
@@ -921,7 +981,9 @@ def main():
            f"{k2_extra / 2**20:.1f} MiB")
     hess_solve.LAUNCHES_QR = 0
     hess_solve.LAUNCHES_V2 = hess_solve.LAUNCHES_V3 = 0
+    hess_solve.LAUNCHES_V2_ROWLOOP = hess_solve.LAUNCHES_V3_ROWLOOP = 0
     W1 = pv["QR"]["W"]
+    plain_ms = {}
     for name, (solve, plain) in variants.items():
         r = pv[name]
         Wv = solve(H, shifts, B)
@@ -929,25 +991,65 @@ def main():
             r["v1_rel_diff"] = float((W1 - Wv).abs().max()) / max(
                 float(W1.abs().max()), 1e-30)
         del Wv
-        r["ms"] = time_ms(lambda: solve(H, shifts, B), reps=10)
-        r["plain_ms"] = time_ms(lambda: plain(H, shifts, B), reps=2)
+        # two turns, the redesign beside the row-loop body in the same call
+        r["turns"] = [time_ms(lambda: solve(H, shifts, B), reps=10)]
+        if plain not in plain_ms:
+            plain_ms[plain] = time_ms(lambda: plain(H, shifts, B), reps=2)
+        r["plain_ms"] = plain_ms[plain]
+    for name, (solve, _) in variants.items():
+        pv[name]["turns"].append(time_ms(lambda: solve(H, shifts, B), reps=10))
+        pv[name]["ms"] = min(pv[name]["turns"])
     pv["QR"]["launches"] = hess_solve.LAUNCHES_QR
     pv["P1"]["launches"] = hess_solve.LAUNCHES_V2
     pv["P2"]["launches"] = hess_solve.LAUNCHES_V3
+    pv["P1 rowloop"]["launches"] = hess_solve.LAUNCHES_V2_ROWLOOP
+    pv["P2 rowloop"]["launches"] = hess_solve.LAUNCHES_V3_ROWLOOP
     k2_again_ms = time_ms(lambda: hess_solve.hess_solve(H, shifts, B), reps=10)
     k2_vs_qr = float((W1 - k2["W"]).abs().max()) / float(W1.abs().max())
     for name, r in pv.items():
-        say(5, f"{name} at ({K}, {EIG_N}) complex64: kernel {r['ms']:.3f} ms "
-               f"({r['ms'] / k2_ms:.2f}× the RQ kernel's {k2_ms:.4f} ms; RQ again "
-               f"after all three: {k2_again_ms:.4f} ms), plain {r['plain_ms']:.1f} "
-               f"ms, torch.linalg.solve {k2_lib_ms:.1f} ms, bound {k2_bound:.4f} ms "
-               f"({k2_by}, the work of K2); "
+        say(5, f"{name} at ({K}, {EIG_N}) complex64: kernel {r['ms']:.3f} ms (two "
+               f"turns {[round(t, 4) for t in r['turns']]}; {r['ms'] / k2_ms:.2f}× the "
+               f"RQ kernel's {k2_ms:.4f} ms; RQ again after all: {k2_again_ms:.4f} ms), "
+               f"plain {r['plain_ms']:.1f} ms, torch.linalg.solve {k2_lib_ms:.1f} ms, "
+               f"bound {k2_bound:.4f} ms ({k2_by}, the work of K2); "
                + (f"QR-vs-{name} rel diff {r['v1_rel_diff']:.3e}; "
                   if "v1_rel_diff" in r else "")
                + f"launches {r['launches']}")
     say(5, f"RQ-vs-QR rel diff at ({K}, {EIG_N}) complex64: {k2_vs_qr:.3e} of "
            f"max|w| (two complex64 orders of the same solve; both within the bars "
            f"above)")
+    # P1 and P2 split: the redesign's sweep and back substitution each alone
+    # (blocked_sweep, blocked_back), the row-loop body's sweep alone (its sweep-only
+    # mode) and its back substitution by difference; the floor of a design
+    # that keeps R (R written once and read once) beside K2's bound; the
+    # redesign at K = 1 (no sharing of H's rows through L2)
+    for name, (solve, _, tiled) in redesigned.items():
+        r = pv[name]
+        R_, Y_ = hess_solve.blocked_sweep(H, shifts, B, tiled)
+        r["sweep_ms"] = time_ms(lambda: hess_solve.blocked_sweep(H, shifts, B, tiled),
+                                reps=10)
+        r["back_ms"] = time_ms(lambda: hess_solve.blocked_back(R_, Y_, tiled), reps=10)
+        del R_, Y_
+        old = pv[f"{name} rowloop"]
+        rowloop = variants[f"{name} rowloop"][0]
+        old["sweep_ms"] = time_ms(lambda: rowloop(H, shifts, B, sweep_only=True), reps=5)
+        old["back_ms"] = old["ms"] - old["sweep_ms"]
+        r["r_floor_ms"] = old["r_floor_ms"] = (
+            2 * K * hess_solve.r_elems(EIG_N, tiled) * 8 / HBM_BYTES_PER_S * 1e3)
+        one_ms = time_ms(lambda: solve(H, shifts[:1], B[:1].contiguous()), reps=10)
+        plan = hess_solve.card_plan(K, EIG_N, B.dtype, tiled)
+        r["speedup"] = old["ms"] / r["ms"]
+        say(5, f"{name} at ({K}, {EIG_N}) complex64, split: redesign {r['ms']:.4f} ms = "
+               f"sweep {r['sweep_ms']:.4f} ms (carried row {plan['home']}) + back "
+               f"substitution {r['back_ms']:.4f} ms (cluster {plan['cluster']}); the "
+               f"row-loop body {old['ms']:.3f} ms = sweep {old['sweep_ms']:.3f} ms + back "
+               f"substitution {old['back_ms']:.3f} ms (by difference); "
+               f"{r['speedup']:.2f}× faster; R-traffic floor {r['r_floor_ms']:.3f} ms "
+               f"beside the bound {k2_bound:.4f} ms; the redesign at K = 1: "
+               f"{one_ms:.4f} ms")
+        if r["speedup"] < 2.0:
+            raise AssertionError(f"{name} at ({K}, {EIG_N}): the redesign is only "
+                                 f"{r['speedup']:.2f}× faster than the row-loop body")
     for r in (k2, *pv.values()):
         r.pop("W", None)
     del H, B, W1
@@ -972,14 +1074,23 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        solve(Hb, shifts, Bb)
+        Wb = solve(Hb, shifts, Bb)
         torch.cuda.synchronize()
         extra = torch.cuda.max_memory_allocated() - base
-        k2_large[name] = (time_ms(lambda: solve(Hb, shifts, Bb), reps=2), extra)
+        res = float(shifted_residual(Hb, shifts, Wb, Bb).max())
+        del Wb
+        if not res <= 5e-5:
+            raise AssertionError(f"{name} ({K}, {n}): residual {res:.3e} > 5e-5")
+        k2_large[name] = (time_ms(lambda: solve(Hb, shifts, Bb), reps=2), extra, res)
+    for name in redesigned:
+        ratio = k2_large[f"{name} rowloop"][0] / k2_large[name][0]
+        if ratio < 2.0:
+            raise AssertionError(f"{name} at ({K}, {n}): the redesign is only "
+                                 f"{ratio:.2f}× faster than the row-loop body")
     say(5, f"({K}, {n}) complex64, one design at a time: "
            + "; ".join(f"{name} {ms:.3f} ms, the call's extra device memory "
-                       f"{extra / 2**30:.3f} GiB" for name, (ms, extra)
-                       in k2_large.items())
+                       f"{extra / 2**30:.3f} GiB, residual {res:.2e}"
+                       for name, (ms, extra, res) in k2_large.items())
            + f"; K2 (state {hess_solve.rq_plan(n, torch.complex64)['home']}) vs "
              f"plain: residual {big['resid']:.3e}, plain {big['plain_resid']:.3e}, "
              f"backward error {big['berr']:.3e} (bar {big['bar']:g})")
@@ -1000,12 +1111,12 @@ def main():
         raise AssertionError(f"the eig finisher ran the blocked LU (P4) "
                              f"{eig_counts['P4_blocked']} and the cluster panel "
                              f"{eig_counts['P3_cluster']} times")
-    if not (eig_counts["K2"] > 0 and eig_counts["K2_QR"] == 0 and
-            eig_counts["P1"] == 0 and eig_counts["P2"] == 0):
+    others = ("K2_QR", "P1", "P2", "P1_PR4", "P2_PR4", "P12_sweep", "P12_back")
+    if not (eig_counts["K2"] > 0 and all(eig_counts[c] == 0 for c in others)):
         raise AssertionError(f"the eig's shifted solves went through the RQ "
                              f"kernel {eig_counts['K2']} times and the QR kernel, "
-                             f"P1, P2 {eig_counts['K2_QR']}, {eig_counts['P1']}, "
-                             f"{eig_counts['P2']} times")
+                             f"P1, P2 and the row-loop bodies "
+                             f"{[eig_counts[c] for c in others]} times")
     eig_peak = torch.cuda.max_memory_allocated()
     say(6, f"first eig {EIG_N}²: {first}; peak device memory "
            f"{eig_peak / 2**30:.2f} GiB")
@@ -1464,9 +1575,13 @@ def main():
         "library_ms": k2_lib_ms} for key, name, src, replaces in (
             ("QR", "hess_solve_qr", "hess_solve",
              "maus_tpu/ops/pallas/hess_solve.py:158"),
-            ("P1", "hess_solve_v2", "hess_solve_v2",
+            ("P1", "hess_solve_v2", "hess_stream_v2",
              "benchmarks/hess_v2_probe.py:168"),
-            ("P2", "hess_solve_v3", "hess_solve_v3",
+            ("P2", "hess_solve_v3", "hess_stream_v3",
+             "benchmarks/hess_v3_probe.py:187"),
+            ("P1 rowloop", "hess_solve_v2_rowloop", "hess_solve_v2",
+             "benchmarks/hess_v2_probe.py:168"),
+            ("P2 rowloop", "hess_solve_v3_rowloop", "hess_solve_v3",
              "benchmarks/hess_v3_probe.py:187"))], {
         "name": "cgemm", "route": "cuda", "source": "maus_tpu_torch/csrc/cgemm_tc.cu",
         "replaces": "maus_tpu/ops/pallas/cgemm.py:57",

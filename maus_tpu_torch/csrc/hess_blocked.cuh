@@ -1,11 +1,15 @@
-// The batched shifted upper-Hessenberg solve with a blocked back substitution:
-// the kernel body of P1 (hess_solve_v2.cu, kV3 = false) and P2
+// The row-loop body of P1 and P2 (their first CUDA form), kept as the
+// yardstick of their redesign (hess_stream.cuh) on no solver path: the
+// batched shifted upper-Hessenberg solve with a blocked back substitution,
+// one block a candidate, for P1 (hess_solve_v2.cu, kV3 = false) and P2
 // (hess_solve_v3.cu, kV3 = true). Both compute K2's function,
 //   (H + s_k I) w_k = b_k   for k = 0..K-1, one shared upper-Hessenberg H,
 // with K2's contract (hess_solve.cu): any K, N >= 1, complex64 or complex128,
 // a forward sweep of complex Givens rotations (identity when b = 0, sign 1
 // when a = 0), and a non-finite row when the triangular factor has an
-// exact-zero diagonal. The design notes are in the two .cu files.
+// exact-zero diagonal. The design notes are in the two .cu files. With
+// sweep_only the kernel stops after the forward sweep and W holds the
+// rotated right-hand side y: the sweep's share of the time.
 #pragma once
 
 #include "hess_common.cuh"
@@ -15,65 +19,6 @@ namespace blocked {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBS = 64;                  // back-substitution block width
-constexpr int kTileStride = kBS + 1;     // staged tile: column-major, padded
-
-template <typename R>
-__device__ __forceinline__ R tiny();
-template <>
-__device__ __forceinline__ float tiny<float>() { return 1e-37f; }
-template <>
-__device__ __forceinline__ double tiny<double>() { return 1e-300; }
-
-// P2's divide-free rotation (benchmarks/hess_v3_probe.py:67-81): with
-// u = rsqrt(|a|²)·rsqrt(|a|² + |b|²), c = |a|²·u = |a|/r and
-// s = a·conj(b)·u = sign(a)·conj(b)/r; sign 1 when |a|² <= tiny
-// (s = conj(b)/r); the identity when b = 0.
-template <typename R>
-__device__ __forceinline__ void givens_rsqrt(cx<R> a, cx<R> b, R& c, cx<R>& s) {
-  const R a2 = a.re * a.re + a.im * a.im;
-  const R b2 = b.re * b.re + b.im * b.im;
-  if (b2 > R(0)) {
-    const R inv_r = rrsqrt(rmax(a2 + b2, tiny<R>()));
-    const R u = rrsqrt(rmax(a2, tiny<R>())) * inv_r;
-    c = a2 * u;
-    s = a2 <= tiny<R>() ? scale(inv_r, conj(b)) : scale(u, mul(a, conj(b)));
-  } else {
-    c = R(1);
-    s = mk(R(0), R(0));
-  }
-}
-
-// Index of R's element (row, col), col >= row, in a candidate's triangular
-// factor. P1 packs rows (row j holds columns j..N-1). P2 keeps column tiles
-// of width kBS: tile t holds columns [t·kBS, (t+1)·kBS) of rows
-// 0..min(N, (t+1)·kBS)-1, row-major with a row stride of kBS, so the rows
-// of one block within one tile are one contiguous run.
-__device__ __forceinline__ size_t tile_offset(int t) {
-  const size_t tt = static_cast<size_t>(t);
-  return tt * (tt + 1) / 2 * static_cast<size_t>(kBS * kBS);
-}
-template <bool kV3>
-__device__ __forceinline__ size_t r_index(int row, int col, int N) {
-  const size_t r = static_cast<size_t>(row);
-  if constexpr (kV3) {
-    const int t = col / kBS;
-    return tile_offset(t) + r * kBS + static_cast<size_t>(col - t * kBS);
-  } else {
-    return r * static_cast<size_t>(N) - r * (r - 1) / 2 +
-           static_cast<size_t>(col - row);
-  }
-}
-
-template <typename R>
-__device__ __forceinline__ cx<R> warp_sum(cx<R> v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v.re += __shfl_xor_sync(0xffffffffu, v.re, off);
-    v.im += __shfl_xor_sync(0xffffffffu, v.im, off);
-  }
-  return v;
-}
 
 template <typename R, bool kV3>
 __global__ void __launch_bounds__(kThreads)
@@ -81,7 +26,7 @@ hess_solve_blocked_kernel(const cx<R>* __restrict__ H,
                           const cx<R>* __restrict__ shifts,
                           const cx<R>* __restrict__ B, cx<R>* __restrict__ W,
                           cx<R>* __restrict__ Rall, cx<R>* __restrict__ gcur,
-                          int N, size_t r_elems) {
+                          int N, size_t r_elems, int sweep_only) {
   extern __shared__ unsigned char smem_raw[];
   cx<R>* ys = reinterpret_cast<cx<R>*>(smem_raw);  // kBS: a block's rhs
   cx<R>* Ts = ys + kBS;                            // kBS·kTileStride tile
@@ -133,6 +78,7 @@ hess_solve_blocked_kernel(const cx<R>* __restrict__ H,
     Rk[r_index<kV3>(N - 1, N - 1, N)] = cur[N - 1];
     w[N - 1] = ycur;
   }
+  if (sweep_only) return;
   __syncthreads();
 
   // ---- blocked back substitution -------------------------------------------
@@ -225,17 +171,9 @@ hess_solve_blocked_kernel(const cx<R>* __restrict__ H,
   }
 }
 
-// Elements of one candidate's triangular factor in the layout of r_index.
-inline size_t r_elems(int N, bool v3) {
-  const size_t n = static_cast<size_t>(N);
-  if (!v3) return n * (n + 1) / 2;
-  const size_t nb = (n + kBS - 1) / kBS;
-  return (nb - 1) * nb / 2 * kBS * kBS + n * kBS;
-}
-
 template <typename R, bool kV3>
 int launch(const void* H, const void* shifts, const void* B, void* W, void* Rs,
-           void* cur_scratch, int K, int N, cudaStream_t stream) {
+           void* cur_scratch, int K, int N, int sweep_only, cudaStream_t stream) {
   const size_t smem = sizeof(cx<R>) *
       (kBS + kBS * kTileStride +
        (cur_scratch != nullptr ? 0 : static_cast<size_t>(N)));
@@ -249,7 +187,7 @@ int launch(const void* H, const void* shifts, const void* B, void* W, void* Rs,
       static_cast<const cx<R>*>(H), static_cast<const cx<R>*>(shifts),
       static_cast<const cx<R>*>(B), static_cast<cx<R>*>(W),
       static_cast<cx<R>*>(Rs), static_cast<cx<R>*>(cur_scratch), N,
-      r_elems(N, kV3));
+      r_elems(N, kV3), sweep_only);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,8 @@
-// Complex arithmetic and the Givens rotation shared by the shifted-Hessenberg
-// solves: K2 (hess_solve.cu) and its two variants P1 (hess_solve_v2.cu) and
-// P2 (hess_solve_v3.cu). Templated on the real type R (float for complex64,
+// Complex arithmetic, the Givens rotations and the layouts of the triangular
+// factor shared by the shifted-Hessenberg solves: K2 (hess_solve_rq.cu, and
+// its QR form hess_solve.cu), P1 and P2 (hess_stream_v2.cu,
+// hess_stream_v3.cu) and the row-loop bodies of P1 and P2 (hess_solve_v2.cu,
+// hess_solve_v3.cu). Templated on the real type R (float for complex64,
 // double for complex128).
 #pragma once
 
@@ -87,6 +89,77 @@ __device__ __forceinline__ void givens(cx<R> a, cx<R> b, R& c, cx<R>& s) {
     c = R(1);
     s = mk(R(0), R(0));
   }
+}
+
+// Below this |a|² an entry counts as zero in a rotation's sign, and the
+// floor on |a|² and |a|² + |b|² under a rsqrt.
+template <typename R>
+__device__ __forceinline__ R tiny();
+template <>
+__device__ __forceinline__ float tiny<float>() { return 1e-37f; }
+template <>
+__device__ __forceinline__ double tiny<double>() { return 1e-300; }
+
+// P2's divide-free rotation (benchmarks/hess_v3_probe.py:67-81): with
+// u = rsqrt(|a|²)·rsqrt(|a|² + |b|²), c = |a|²·u = |a|/r and
+// s = a·conj(b)·u = sign(a)·conj(b)/r; sign 1 when |a|² <= tiny
+// (s = conj(b)/r); the identity when b = 0.
+template <typename R>
+__device__ __forceinline__ void givens_rsqrt(cx<R> a, cx<R> b, R& c, cx<R>& s) {
+  const R a2 = a.re * a.re + a.im * a.im;
+  const R b2 = b.re * b.re + b.im * b.im;
+  if (b2 > R(0)) {
+    const R inv_r = rrsqrt(rmax(a2 + b2, tiny<R>()));
+    const R u = rrsqrt(rmax(a2, tiny<R>())) * inv_r;
+    c = a2 * u;
+    s = a2 <= tiny<R>() ? scale(inv_r, conj(b)) : scale(u, mul(a, conj(b)));
+  } else {
+    c = R(1);
+    s = mk(R(0), R(0));
+  }
+}
+
+// ---- the triangular factor of P1 and P2 -------------------------------------
+constexpr int kBS = 64;                  // back-substitution block width
+constexpr int kTileStride = kBS + 1;     // a staged tile: column-major, padded
+
+// Index of R's element (row, col), col >= row, in a candidate's triangular
+// factor. P1 packs rows (row j holds columns j..N-1). P2 keeps column tiles
+// of width kBS: tile t holds columns [t·kBS, (t+1)·kBS) of rows
+// 0..min(N, (t+1)·kBS)-1, row-major with a row stride of kBS, so the rows
+// of one block within one tile are one contiguous run.
+__device__ __forceinline__ size_t tile_offset(int t) {
+  const size_t tt = static_cast<size_t>(t);
+  return tt * (tt + 1) / 2 * static_cast<size_t>(kBS * kBS);
+}
+template <bool kV3>
+__device__ __forceinline__ size_t r_index(int row, int col, int N) {
+  const size_t r = static_cast<size_t>(row);
+  if constexpr (kV3) {
+    const int t = col / kBS;
+    return tile_offset(t) + r * kBS + static_cast<size_t>(col - t * kBS);
+  } else {
+    return r * static_cast<size_t>(N) - r * (r - 1) / 2 +
+           static_cast<size_t>(col - row);
+  }
+}
+
+// Elements of one candidate's triangular factor in the layout of r_index.
+inline size_t r_elems(int N, bool v3) {
+  const size_t n = static_cast<size_t>(N);
+  if (!v3) return n * (n + 1) / 2;
+  const size_t nb = (n + kBS - 1) / kBS;
+  return (nb - 1) * nb / 2 * kBS * kBS + n * kBS;
+}
+
+template <typename R>
+__device__ __forceinline__ cx<R> warp_sum(cx<R> v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v.re += __shfl_xor_sync(0xffffffffu, v.re, off);
+    v.im += __shfl_xor_sync(0xffffffffu, v.im, off);
+  }
+  return v;
 }
 
 }  // namespace maus

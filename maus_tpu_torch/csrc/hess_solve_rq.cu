@@ -90,14 +90,6 @@ __device__ __forceinline__ void rotate_row(cx<R>& car, cx<R>& acc, cx<R> f,
   car = add(mul(ms, o), scale(c, f));
 }
 
-// Below this |a|² the carried entry counts as zero in the rotation's sign.
-template <typename R>
-__device__ __forceinline__ R tiny();
-template <>
-__device__ __forceinline__ float tiny<float>() { return 1e-37f; }
-template <>
-__device__ __forceinline__ double tiny<double>() { return 1e-300; }
-
 // A step's pivot, divide-free: the rotation zeroing h = M[k, k-1] against
 // the carried entry a = car[k] and z_k = (b_k - acc_k) / R[k, k]. With
 // ia = rsqrt(|a|²), ir = rsqrt(|a|² + |h|²) and sign(a) = a·ia (1 where

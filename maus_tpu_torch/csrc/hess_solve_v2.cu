@@ -1,5 +1,6 @@
-// Batched shifted upper-Hessenberg solve, variant P1 (blocked back
-// substitution):
+// The row-loop body of P1 (its first CUDA form), kept as the yardstick of its
+// redesign (hess_stream_v2.cu) and launched on no solver path: the batched
+// shifted upper-Hessenberg solve with a blocked back substitution,
 //   (H + s_k I) w_k = b_k   for k = 0..K-1, one shared upper-Hessenberg H.
 //
 // Replaces benchmarks/hess_v2_probe.py:168, hess_solve_v2 (body _kernel_v2),
@@ -47,14 +48,17 @@
 #include "hess_blocked.cuh"
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue when `block` is not the kernel's block width.
-extern "C" int maus_hess_solve_v2(const void* H, const void* shifts,
-                                  const void* B, void* W, void* R,
-                                  void* cur_scratch, int is_c128, int K, int N,
-                                  int block, void* stream) {
+// cudaErrorInvalidValue when `block` is not the kernel's block width. With
+// sweep_only != 0 the kernel stops after the sweep (W holds y).
+extern "C" int maus_hess_solve_v2_rowloop(const void* H, const void* shifts,
+                                          const void* B, void* W, void* R,
+                                          void* cur_scratch, int is_c128, int K,
+                                          int N, int block, int sweep_only,
+                                          void* stream) {
+  using namespace maus;
   using namespace maus::blocked;
   if (block != kBS) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_c128) return launch<double, false>(H, shifts, B, W, R, cur_scratch, K, N, s);
-  return launch<float, false>(H, shifts, B, W, R, cur_scratch, K, N, s);
+  if (is_c128) return launch<double, false>(H, shifts, B, W, R, cur_scratch, K, N, sweep_only, s);
+  return launch<float, false>(H, shifts, B, W, R, cur_scratch, K, N, sweep_only, s);
 }

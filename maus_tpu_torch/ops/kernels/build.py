@@ -22,9 +22,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("true_residual.cu", "hess_solve_rq.cu", "hess_solve.cu",
-           "hess_solve_v2.cu", "hess_solve_v3.cu", "cgemm.cu", "cgemm_tc.cu",
-           "lu.cu")
-HEADERS = ("hess_common.cuh", "hess_blocked.cuh", "cgemm.cuh")
+           "hess_solve_v2.cu", "hess_solve_v3.cu", "hess_stream_v2.cu",
+           "hess_stream_v3.cu", "cgemm.cu", "cgemm_tc.cu", "lu.cu")
+HEADERS = ("hess_common.cuh", "hess_blocked.cuh", "hess_stream.cuh", "cgemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -98,9 +98,14 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
                 [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            for name in ("maus_hess_solve_v2_rowloop", "maus_hess_solve_v3_rowloop"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+                    [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             for name in ("maus_hess_solve_v2", "maus_hess_solve_v3"):
                 fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
                     [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             ptr, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int,

@@ -13,20 +13,31 @@ factor packed in an O(K·N²) scratch and a separate back substitution
 (``csrc/hess_solve.cu``, the TPU kernel's own order), stays as
 :func:`hess_solve_qr` with its plain version :func:`hess_solve_plain`. P1 and
 P2 compute the same function as that QR form with a blocked back
-substitution: P1 replaces ``benchmarks/hess_v2_probe.py::hess_solve_v2``
-(``csrc/hess_solve_v2.cu``), P2 ``benchmarks/hess_v3_probe.py::hess_solve_v3``
-(``csrc/hess_solve_v3.cu``, with a divide-free rotation, R in column tiles
-and reciprocal diagonals). Like their TPU counterparts, which only the JAX
-package's A/B probes call, the QR form, P1 and P2 are on no solver path;
-designs and bounds are in the sources' headers.
+substitution: P1 replaces ``benchmarks/hess_v2_probe.py::hess_solve_v2``,
+P2 ``benchmarks/hess_v3_probe.py::hess_solve_v3`` (a divide-free rotation, R
+in column tiles and reciprocal diagonals). Their kernels (``csrc/
+hess_stream.cuh``, entries ``csrc/hess_stream_v2.cu`` and ``_v3.cu``) are a
+sweep that streams R out with the carried row in registers, and a back
+substitution on a thread-block cluster per candidate; the launch is planned
+by :func:`blocked_plan`. The row-loop body of both (``csrc/hess_blocked.cuh``)
+stays as :func:`hess_solve_v2_rowloop` and :func:`hess_solve_v3_rowloop`,
+the yardstick of the redesign. :func:`blocked_sweep` and
+:func:`blocked_back` run the redesign's two kernels apart, for timing. Like
+their TPU counterparts, which only the JAX package's A/B probes call, the
+QR form, P1 and P2 are on no solver path; designs and bounds are in the
+sources' headers.
 
 Every wrapper here launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU; on a CUDA tensor it launches the kernel
 or raises, and never falls back. ``LAUNCHES`` (K2), ``LAUNCHES_QR``,
-``LAUNCHES_V2`` and ``LAUNCHES_V3`` count kernel launches (the plain
-versions do not count), so a run can show which kernel it went through.
+``LAUNCHES_V2``, ``LAUNCHES_V3``, ``LAUNCHES_V2_ROWLOOP``,
+``LAUNCHES_V3_ROWLOOP``, ``LAUNCHES_SWEEP`` and ``LAUNCHES_BACK`` count
+kernel launches, one per wrapper call (the plain versions do not count), so
+a run can show which kernel it went through.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,17 +45,34 @@ LAUNCHES = 0
 LAUNCHES_QR = 0
 LAUNCHES_V2 = 0
 LAUNCHES_V3 = 0
+LAUNCHES_V2_ROWLOOP = 0
+LAUNCHES_V3_ROWLOOP = 0
+LAUNCHES_SWEEP = 0
+LAUNCHES_BACK = 0
 
 # Past this many bytes per row the carried row of the QR form leaves shared
 # memory for a global scratch row (its shared-memory budget, well under the
-# 227 KB a block may use). P1 and P2 also stage a BLOCK × (BLOCK + 1) tile,
-# so their budget for the row is smaller.
+# 227 KB a block may use). the row-loop body of P1 and P2 also stages a
+# BLOCK × (BLOCK + 1) tile, so its budget for the row is smaller.
 _SHARED_ROW_BYTES = 160 * 1024
 _SHARED_ROW_BYTES_BLOCKED = 128 * 1024
 
 # The back-substitution block width of P1 and P2 (kBS in
-# csrc/hess_blocked.cuh; the kernels refuse any other).
+# csrc/hess_common.cuh; the row-loop body refuses any other).
 BLOCK = 64
+
+# The launch of P1's and P2's sweep (csrc/hess_stream.cuh): column threads a
+# block (beside them, one pivot warp), and columns a thread whose carried
+# entries live in registers (the kernel refuses any other); columns past
+# threads × cols keep theirs in shared memory when they fit, else in a
+# global scratch of the call. The back
+# substitution runs a cluster of 1 to BLOCKED_MAX_CLUSTER CTAs a candidate.
+BLOCKED_THREADS = 480
+BLOCKED_COLS = {torch.complex64: 9, torch.complex128: 5}
+BLOCKED_MAX_CLUSTER = 8
+# the H100's streaming multiprocessors, which the default cluster size
+# shares out among the candidates
+_SMS = 132
 
 # The RQ kernel's launch shapes: threads a block, and for each its rows a
 # thread in registers (the rows_per_thread template of
@@ -229,6 +257,101 @@ def rq_plan(N: int, dtype: torch.dtype, threads: int | None = None) -> dict:
                 smem=smem)
 
 
+def blocked_plan(K: int, N: int, dtype: torch.dtype, cluster: int | None = None,
+                 active=None) -> dict:
+    """The launch of P1's and P2's kernels for K candidates of order N: the
+    sweep's threads, columns a thread in registers, and the home of the
+    carried row's columns past that fit ("registers" when there are none,
+    else "shared" or "global") with the dynamic shared memory it takes; and
+    the back substitution's cluster size and its shared memory a CTA.
+
+    The cluster size, unless given: at least 2 past two blocks of columns
+    (CTA 0 runs the blocks' recurrences, the others the far dot products),
+    at most one CTA a block and BLOCKED_MAX_CLUSTER; with ``active`` (C -> the clusters of C CTAs the
+    card runs at once, :func:`back_occupancy`) the largest whose K clusters
+    all run in one wave, else the one of fewest waves; without it the SMs
+    shared out among the candidates. Pure: the wrappers pass the card's
+    occupancy."""
+    if dtype not in BLOCKED_COLS:
+        raise ValueError(f"no P1/P2 kernel for {dtype}")
+    if K < 1 or N < 1:
+        raise ValueError(f"empty batch ({K}, {N})")
+    cols = BLOCKED_COLS[dtype]
+    esz = 8 if dtype == torch.complex64 else 16
+    spill = max(0, N - BLOCKED_THREADS * cols)
+    smem = 0
+    if spill == 0:
+        home = "registers"
+    elif spill * esz <= _SMEM_LIMIT:
+        home, smem = "shared", spill * esz
+    else:
+        home = "global"
+    _check_cluster(cluster)
+    nb = -(-N // BLOCK)
+    # past two blocks a target has a far sum, which a worker CTA computes
+    least = 1 if nb <= 2 else 2
+    if cluster is None:
+        top = max(least, min(BLOCKED_MAX_CLUSTER, nb))
+        if active is None:
+            cluster = max(least, min(top, _SMS // K))
+        else:
+            waves = {C: -(-K // max(1, active(C))) for C in range(least, top + 1)}
+            cluster = min(waves, key=lambda C: (waves[C], -C))
+    elif cluster < least:
+        raise ValueError(f"cluster {cluster} at N = {N}: past {2 * BLOCK} columns "
+                         f"the back substitution needs a worker CTA (cluster >= 2)")
+    # two diagonal tiles and the tile above, padded (back_smem_bytes in
+    # csrc/hess_stream.cuh), the far sums of two targets, rhs, x_b, near, y
+    back_smem = (3 * BLOCK * (BLOCK + 1) + 6 * BLOCK) * esz
+    return dict(threads=BLOCKED_THREADS, cols=cols, home=home,
+                spill_cols=spill, smem=smem, cluster=cluster,
+                back_smem=back_smem)
+
+
+def r_elems(N: int, tiled: bool) -> int:
+    """Elements of one candidate's R: rows packed (P1) or column tiles of
+    BLOCK (P2), as ``r_elems`` in csrc/hess_common.cuh."""
+    if not tiled:
+        return N * (N + 1) // 2
+    nb = -(-N // BLOCK)
+    return (nb - 1) * nb // 2 * BLOCK * BLOCK + N * BLOCK
+
+
+def _r_layout(N: int, tiled: bool, device):
+    """(rows, cols, flat): the upper triangle's indices and their places in
+    a candidate's R (``r_index`` in csrc/hess_common.cuh)."""
+    rows, cols = torch.triu_indices(N, N, device=device)
+    if tiled:
+        t = cols // BLOCK
+        flat = t * (t + 1) // 2 * BLOCK * BLOCK + rows * BLOCK + cols % BLOCK
+    else:
+        flat = rows * N - rows * (rows - 1) // 2 + cols - rows
+    return rows, cols, flat
+
+
+def blocked_sweep_plain(H: torch.Tensor, shifts: torch.Tensor, B: torch.Tensor,
+                        tiled: bool):
+    """The sweep of P1 (``tiled=False``) or P2 alone: (R, y), R flat in the
+    kernel's layout (zeros where the layout has room and R has no entry)."""
+    K, N = B.shape
+    Rw, y = _sweep(H, shifts, B, _givens_rsqrt if tiled else _givens)
+    rows, cols, flat = _r_layout(N, tiled, B.device)
+    R = torch.zeros((K, r_elems(N, tiled)), dtype=B.dtype, device=B.device)
+    R[:, flat] = Rw[:, rows, cols]
+    return R.reshape(-1), y
+
+
+def blocked_back_plain(R: torch.Tensor, Y: torch.Tensor,
+                       tiled: bool) -> torch.Tensor:
+    """The back substitution of P1 (``tiled=False``) or P2 alone, from R in
+    the kernel's layout and the rotated right-hand sides Y."""
+    K, N = Y.shape
+    rows, cols, flat = _r_layout(N, tiled, Y.device)
+    Rw = torch.zeros((K, N, N), dtype=Y.dtype, device=Y.device)
+    Rw[:, rows, cols] = R.reshape(K, -1)[:, flat]
+    return _back_blocked(Rw, Y, reciprocal=tiled)
+
+
 def _back_blocked(Rw: torch.Tensor, y: torch.Tensor,
                   reciprocal: bool) -> torch.Tensor:
     """The blocked back substitution of P1 (``reciprocal=False``) and P2, in
@@ -270,8 +393,10 @@ def _back_blocked(Rw: torch.Tensor, y: torch.Tensor,
 
 def hess_solve_v2_plain(H: torch.Tensor, shifts: torch.Tensor,
                         B: torch.Tensor) -> torch.Tensor:
-    """P1's function in its order of operations: K2's sweep, then the
-    blocked back substitution with divides."""
+    """P1's function in its order of operations: the top-down Givens sweep,
+    then the blocked back substitution with divides. The kernel's phase A
+    sums the dot products in another order (split over a cluster's CTAs,
+    the block just solved apart): rounding-level differences."""
     Rw, y = _sweep(H, shifts, B, _givens)
     return _back_blocked(Rw, y, reciprocal=False)
 
@@ -416,37 +541,195 @@ def hess_solve_qr(H: torch.Tensor, shifts: torch.Tensor,
     return W
 
 
-def _tiled_elems(N: int) -> int:
-    """Elements of one candidate's R in P2's column tiles."""
-    nb = -(-N // BLOCK)
-    return (nb - 1) * nb // 2 * BLOCK * BLOCK + N * BLOCK
+def _check_cluster(cluster: int | None) -> None:
+    if cluster is not None and not 1 <= cluster <= BLOCKED_MAX_CLUSTER:
+        raise ValueError(f"cluster {cluster} outside 1..{BLOCKED_MAX_CLUSTER}")
 
 
-def hess_solve_v2(H: torch.Tensor, shifts: torch.Tensor,
-                  B: torch.Tensor) -> torch.Tensor:
-    """:func:`hess_solve_qr`'s function through P1 (blocked back
-    substitution); same arguments and contract."""
+def _blocked(tiled: bool, mode: int, H, shifts, B, R=None,
+             cluster: int | None = None):
+    """One C call of the redesigned P1 (``tiled=False``) or P2: mode 1 the
+    sweep (returns (W = y, R)), mode 2 the back substitution of B = Y with
+    the given R (returns (x, R)), mode 3 both (returns (w, R)). Raises on a
+    failed launch."""
+    name = "maus_hess_solve_v3" if tiled else "maus_hess_solve_v2"
+    if B.device.type != "cuda":
+        raise ValueError(f"no {name} for device {B.device}")
+    import ctypes
+
+    from .build import library
+
+    ops = [t for t in (H, shifts, B, R) if t is not None]
+    if any(t.data_ptr() % B.element_size() for t in ops):
+        raise ValueError("misaligned operand storage")
+    K, N = B.shape
+    if K >= 2 ** 31 or r_elems(N, tiled) >= 2 ** 32:
+        raise ValueError(f"batch {tuple(B.shape)} exceeds the kernels' range "
+                         f"(K < 2^31, a candidate's R under 2^32 elements)")
+    plan = card_plan(K, N, B.dtype, tiled, cluster, B.device)
+    lib = library()
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    with torch.cuda.device(B.device):
+        W = torch.empty_like(B)
+        if R is None:
+            R = torch.empty(K * r_elems(N, tiled), dtype=B.dtype, device=B.device)
+        spill = None
+        if mode & 1 and plan["home"] == "global":
+            spill = torch.empty((K, plan["spill_cols"]), dtype=B.dtype,
+                                device=B.device)
+        stream = torch.cuda.current_stream(B.device).cuda_stream
+        err = getattr(lib, name)(
+            ptr(H), ptr(shifts), ptr(B if mode & 1 else None), ptr(W), ptr(R),
+            ptr(spill), ptr(B if mode == 2 else None),
+            int(B.dtype == torch.complex128), K, N, plan["cols"],
+            plan["cluster"], mode, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return W, R
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(cluster: int, dtype: torch.dtype, tiled: bool, device: int) -> int:
+    return back_occupancy(cluster, dtype, tiled, torch.device("cuda", device))
+
+
+def card_plan(K: int, N: int, dtype: torch.dtype, tiled: bool,
+              cluster: int | None = None, device=None) -> dict:
+    """:func:`blocked_plan` with the occupancy of the card at ``device``
+    (default: the current one), as P1's (``tiled=False``) and P2's wrappers
+    launch."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return blocked_plan(K, N, dtype, cluster,
+                        active=lambda C: _occupancy(C, dtype, tiled, index))
+
+
+def back_occupancy(cluster: int, dtype: torch.dtype, tiled: bool = False,
+                   device=None) -> int:
+    """The most clusters of ``cluster`` back-substitution CTAs of P1
+    (``tiled=False``) or P2 that the card runs at once
+    (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from .build import library
+
+    if dtype not in BLOCKED_COLS:
+        raise ValueError(f"no P1/P2 kernel for {dtype}")
+    name = "maus_hess_solve_v3" if tiled else "maus_hess_solve_v2"
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.device("cuda")):
+        err = getattr(library(), name)(
+            None, None, None, ctypes.c_void_p(ctypes.addressof(out)), None, None,
+            None, int(dtype == torch.complex128), 1, 1, 0, cluster, 0, None)
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: CUDA error {err}")
+    return out.value
+
+
+def hess_solve_v2(H: torch.Tensor, shifts: torch.Tensor, B: torch.Tensor,
+                  cluster: int | None = None) -> torch.Tensor:
+    """:func:`hess_solve_qr`'s function through P1 (the streaming sweep,
+    then the cluster's blocked back substitution with divides); same
+    arguments and contract. ``cluster`` forces the back substitution's CTAs
+    a candidate (1..8; default :func:`blocked_plan`'s)."""
     global LAUNCHES_V2
     _check(H, shifts, B)
+    _check_cluster(cluster)
     if B.device.type == "cpu":
         return hess_solve_v2_plain(H, shifts, B)
-    N = B.shape[1]
-    W = _launch("maus_hess_solve_v2", H, shifts, B, N * (N + 1) // 2,
-                _SHARED_ROW_BYTES_BLOCKED, BLOCK)
+    W, _ = _blocked(False, 3, H, shifts, B, cluster=cluster)
     LAUNCHES_V2 += 1
     return W
 
 
-def hess_solve_v3(H: torch.Tensor, shifts: torch.Tensor,
-                  B: torch.Tensor) -> torch.Tensor:
-    """:func:`hess_solve_qr`'s function through P2 (divide-free sweep, tiled R,
-    blocked back substitution with reciprocal diagonals); same arguments and
-    contract."""
+def hess_solve_v3(H: torch.Tensor, shifts: torch.Tensor, B: torch.Tensor,
+                  cluster: int | None = None) -> torch.Tensor:
+    """:func:`hess_solve_qr`'s function through P2 (the streaming sweep with
+    the divide-free rotation, R in column tiles, the cluster's blocked back
+    substitution with reciprocal diagonals); same arguments as
+    :func:`hess_solve_v2`."""
     global LAUNCHES_V3
     _check(H, shifts, B)
+    _check_cluster(cluster)
     if B.device.type == "cpu":
         return hess_solve_v3_plain(H, shifts, B)
-    W = _launch("maus_hess_solve_v3", H, shifts, B, _tiled_elems(B.shape[1]),
-                _SHARED_ROW_BYTES_BLOCKED, BLOCK)
+    W, _ = _blocked(True, 3, H, shifts, B, cluster=cluster)
     LAUNCHES_V3 += 1
+    return W
+
+
+def blocked_sweep(H: torch.Tensor, shifts: torch.Tensor, B: torch.Tensor,
+                  tiled: bool = False):
+    """The sweep of P1 (``tiled=False``) or P2 alone: (R, y), R flat in the
+    kernel's layout (:func:`r_elems` a candidate), y (K, N) the rotated
+    right-hand sides; with :func:`blocked_back` it splits the solve for
+    timing."""
+    global LAUNCHES_SWEEP
+    _check(H, shifts, B)
+    if B.device.type == "cpu":
+        return blocked_sweep_plain(H, shifts, B, tiled)
+    Y, R = _blocked(tiled, 1, H, shifts, B)
+    LAUNCHES_SWEEP += 1
+    return R, Y
+
+
+def blocked_back(R: torch.Tensor, Y: torch.Tensor, tiled: bool = False,
+                 cluster: int | None = None) -> torch.Tensor:
+    """The back substitution of P1 (``tiled=False``) or P2 alone: x with
+    R x = y from :func:`blocked_sweep`'s (R, y)."""
+    global LAUNCHES_BACK
+    _check_cluster(cluster)
+    if Y.dtype not in (torch.complex64, torch.complex128) or Y.ndim != 2:
+        raise TypeError(f"Y must be (K, N) complex64 or complex128, got "
+                        f"{Y.dtype} {tuple(Y.shape)}")
+    K, N = Y.shape
+    if R.dtype != Y.dtype or R.shape != (K * r_elems(N, tiled),) or \
+            R.device != Y.device:
+        raise ValueError(f"R must be ({K * r_elems(N, tiled)},) {Y.dtype} on "
+                         f"{Y.device}, got {tuple(R.shape)} {R.dtype} on {R.device}")
+    if K == 0 or N == 0 or not (R.is_contiguous() and Y.is_contiguous()):
+        raise ValueError("R and Y must be non-empty and contiguous")
+    if Y.device.type == "cpu":
+        return blocked_back_plain(R, Y, tiled)
+    X, _ = _blocked(tiled, 2, None, None, Y, R=R, cluster=cluster)
+    LAUNCHES_BACK += 1
+    return X
+
+
+def hess_solve_v2_rowloop(H: torch.Tensor, shifts: torch.Tensor,
+                          B: torch.Tensor, sweep_only: bool = False) -> torch.Tensor:
+    """:func:`hess_solve_v2`'s function through the row-loop body of P1 (one
+    block of 256 threads a candidate, sweep and back substitution in one
+    kernel), kept as the redesign's yardstick. With ``sweep_only`` it stops
+    after the sweep and returns the rotated right-hand sides y."""
+    global LAUNCHES_V2_ROWLOOP
+    _check(H, shifts, B)
+    if B.device.type == "cpu":
+        if sweep_only:
+            return _sweep(H, shifts, B, _givens)[1]
+        return hess_solve_v2_plain(H, shifts, B)
+    N = B.shape[1]
+    W = _launch("maus_hess_solve_v2_rowloop", H, shifts, B, r_elems(N, False),
+                _SHARED_ROW_BYTES_BLOCKED, BLOCK, int(sweep_only))
+    LAUNCHES_V2_ROWLOOP += 1
+    return W
+
+
+def hess_solve_v3_rowloop(H: torch.Tensor, shifts: torch.Tensor,
+                          B: torch.Tensor, sweep_only: bool = False) -> torch.Tensor:
+    """:func:`hess_solve_v3`'s function through the row-loop body of P2; as
+    :func:`hess_solve_v2_rowloop`."""
+    global LAUNCHES_V3_ROWLOOP
+    _check(H, shifts, B)
+    if B.device.type == "cpu":
+        if sweep_only:
+            return _sweep(H, shifts, B, _givens_rsqrt)[1]
+        return hess_solve_v3_plain(H, shifts, B)
+    W = _launch("maus_hess_solve_v3_rowloop", H, shifts, B,
+                r_elems(B.shape[1], True), _SHARED_ROW_BYTES_BLOCKED, BLOCK,
+                int(sweep_only))
+    LAUNCHES_V3_ROWLOOP += 1
     return W

@@ -1,8 +1,9 @@
 """Kernels P1 and P2, the two blocked variants of K2 (the batched shifted
 Hessenberg solve), against the JAX package on the same numpy inputs.
 
-On the CPU the wrappers ``hess_solve_v2`` and ``hess_solve_v3`` run their
-kernels' plain versions. Those are held to the TPU kernels they replace
+On the CPU the wrappers ``hess_solve_v2`` and ``hess_solve_v3`` (the
+redesigned kernels, csrc/hess_stream.cuh) run their kernels' plain
+versions. Those are held to the TPU kernels they replace
 (``benchmarks/hess_v2_probe.py::hess_solve_v2`` and
 ``benchmarks/hess_v3_probe.py::hess_solve_v3``, run in interpret mode and
 loaded by path, since the probes are scripts) at the relative-residual bar
@@ -213,19 +214,26 @@ def test_kernel_zero_pivot_on_card(variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_kernel_carried_row_in_global_memory_on_card(variant):
-    """N = 8193 in complex128 is past the blocked kernels' shared-memory
-    budget for the carried row (128 KB), which then lives in global memory;
-    the operand is 3I plus a small random Hessenberg part, well conditioned
-    without a reduction."""
+    """The carried row in global memory: N = 16673 in complex128 is past the
+    redesigned sweep's shared-memory fit for the columns beyond its 480 × 5
+    in registers (hess_solve.blocked_plan), and N = 8193 past the 128 KB
+    budget of the row-loop body (kept as hess_solve_v2/_v3_rowloop). Each operand
+    is 3I plus a small random Hessenberg part, well conditioned without a
+    reduction."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
-    n = 8193
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    H = torch.triu(torch.randn(n, n, generator=g, dtype=torch.complex128,
-                               device="cuda"), diagonal=-1) / n \
-        + 3.0 * torch.eye(n, dtype=torch.complex128, device="cuda")
-    s = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device="cuda")
-    B = torch.randn(1, n, generator=g, dtype=torch.complex128, device="cuda")
-    w = VARIANTS[variant][0](H, s, B)
-    assert _card_residual(H, s, w, B) <= 1e-12
+    rowloop = getattr(hess_solve, f"hess_solve_{variant}_rowloop")
+    for n, solve in ((16673, VARIANTS[variant][0]), (8193, rowloop)):
+        H = torch.triu(torch.randn(n, n, generator=g, dtype=torch.complex128,
+                                   device="cuda"), diagonal=-1) / n \
+            + 3.0 * torch.eye(n, dtype=torch.complex128, device="cuda")
+        s = torch.full((1,), 0.5 + 0.5j, dtype=torch.complex128, device="cuda")
+        B = torch.randn(1, n, generator=g, dtype=torch.complex128, device="cuda")
+        if solve is not rowloop:
+            assert hess_solve.blocked_plan(1, n, torch.complex128)["home"] == "global"
+        w = solve(H, s, B)
+        assert _card_residual(H, s, w, B) <= 1e-12
+        del H, B, w
+        torch.cuda.empty_cache()
