@@ -10,8 +10,9 @@ K2's RQ kernel beside its QR form and the QR form's two blocked variants P1
 and P2 (beside the row-loop bodies of them), which the JAX package's probes run
 as an A/B; 16 eigenpairs of a
 Hermitian complex64 operand at 4096² (deflated Lanczos) and 2048² (shared
-eigh), both finished through P4; and the reference's four scenarios through
-the CLI.
+eigh), both finished through P4; the reference's four scenarios through
+the CLI; checkpoint/resume and per-iteration metrics of the linear and SVD
+runs; and KAIROSAGE's genesis cycles with stage III on the card.
 
     python3 chip_smoke.py
 
@@ -93,7 +94,26 @@ Phases, each printing its own lines:
      then one timed warm run;
  11. the same at 2048², one run: the shared-eigh branch (no Lanczos call);
  12. maus_tpu_torch.cli.main(["scenarios"]) on the card: exit code 0 and the
-     reference's four scenarios passed at 1/1, 8/8, 8/8 and 2/2.
+     reference's four scenarios passed at 1/1, 8/8, 8/8 and 2/2;
+ 13. checkpoint/resume and metrics: the linear 4096² system of phase 3 and
+     the SVD of phase 9, each through MausSolver.evolve uninterrupted
+     without and with collect_metrics (host syncs counted by
+     torch.cuda.set_sync_debug_mode, engine seconds), cut short with
+     periodic saves (linear: every iteration, cut at 2; SVD: every 25, cut
+     at 50) and resumed from the file in a fresh solver: the resumed run
+     and the metrics run bit-equal to the uninterrupted one (iterations,
+     distinct counts, residuals, every vector), the metrics rows zero
+     after the stop, at most 13 syncs added by the metrics, the resumed
+     run's kernel launches (K1; P3, P4, K3), and the checkpoint's size,
+     load and save seconds;
+ 14. KAIROSAGE: GenesisEngine(AgeConfig(candidates_per_cycle=20),
+     seed=0).run(5) (BASELINE.md row 10) with stage III on the card, held
+     to the same run on the CPU in this process (library sizes equal every
+     cycle, best fitness within 1e-4), with wall seconds; a stage-III batch
+     of 4096 random tapes (N = T = 50) held to the CPU within 1e-4, with
+     simulations per second; a two-cycle IslandAGE of 4 islands; and
+     python -m maus_tpu_torch age --cycles 5 --json, equal to the card's
+     run.
 On every solver path K3 launches once for each trailing update of the
 path's LUs, and PR 3's CUDA-core body never (checked).
 Then a JSON line with the kernel table, and as the last line
@@ -152,6 +172,15 @@ QR_EIG = (6, 21)
 HERM_SMALL_N = 2048          # the shared-eigh branch (SolverConfig.eigh_max_n)
 # the reference's scenario counts (README.md, "Results vs the reference")
 SCENARIO_COUNTS = ["1/1", "8/8", "8/8", "2/2"]
+# checkpoints of phase 13, under the script's directory (gitignored) and
+# removed after the phase
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".smoke_checkpoints")
+# KAIROSAGE (phase 14): BASELINE.md row 10's workload, 5 cycles of 20
+# candidates, and a stage-III batch of random tapes
+AGE_CYCLES = 5
+AGE_CANDIDATES = 20
+AGE_BATCH = 4096
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the FP32 and FP64 rates
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -632,6 +661,268 @@ def svd_and_check(maus_tpu_torch, A, sig, label):
                 worst_top=worst_top, worst_best=worst_best,
                 construct_s=wall - t["setup_s"] - t["engine_s"] - t["finish_s"],
                 **t)
+
+
+def count_syncs(fn):
+    """``fn()`` and the number of synchronizing CUDA calls it made (device
+    to host copies, ``.item()``, ``bool`` of a device tensor), as
+    ``torch.cuda.set_sync_debug_mode`` reports them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def same_report(got, want):
+    """Bit equality of two reports: iterations, distinct counts, residuals
+    and every array of every solution."""
+    import numpy as np
+
+    return (got.iterations == want.iterations
+            and got.num_distinct == want.num_distinct
+            and got.residuals == want.residuals
+            and all(np.array_equal(np.asarray(x), np.asarray(y))
+                    for sg, sw in zip(got.solutions, want.solutions)
+                    for x, y in zip(sg, sw)))
+
+
+def report_diff(got, want) -> str:
+    import numpy as np
+
+    res = np.abs(np.subtract(got.residuals[:len(want.residuals)],
+                             want.residuals[:len(got.residuals)]))
+    return (f"iterations {got.iterations} vs {want.iterations}, distinct "
+            f"{got.num_distinct} vs {want.num_distinct}, max |Δ residual| "
+            f"{res.max(initial=0.0):.3e}")
+
+
+def phase13(maus_tpu_torch, A, b, A_svd, reset_counts, counts, check_k3_counts):
+    """Checkpoint/resume and metrics on the card: the linear 4096² headline
+    and the 4096×2048 SVD, each run uninterrupted with and without
+    collect_metrics (host syncs counted), cut short with periodic saves,
+    and resumed in a fresh solver from the file; the resumed run must equal
+    the uninterrupted one bit for bit. Returns the numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from maus_tpu_torch import MausSolver, ProblemType
+    from maus_tpu_torch.solver import evolve as evolve_mod
+    from maus_tpu_torch.utils.checkpoint import load_state, save_state
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    out = {}
+    try:
+        def linear():
+            return MausSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
+                              initial_num_candidates=CANDIDATES,
+                              global_convergence_tol=TOL, seed=SEED)
+
+        def svd():
+            return MausSolver(A_svd, ProblemType.SVD,
+                              initial_num_candidates=SVD_CANDIDATES,
+                              global_convergence_tol=SVD_TOL, seed=SEED,
+                              target_solutions=SVD_TOP)
+
+        for label, make, bound, cut, every, launched in (
+                (f"linear {HEADLINE_N}²", linear, MAX_ITERATIONS, 2, 1, ("K1",)),
+                (f"svd {SVD_M}×{SVD_N}", svd, SVD_MAX_ITERATIONS, 50, 25,
+                 ("P3_cluster", "P4_blocked", "K3"))):
+            path = os.path.join(CKPT_DIR, "carry.npz")
+            plain, syncs_plain = count_syncs(lambda: make().evolve(bound))
+            ref, syncs_ref = count_syncs(
+                lambda: make().evolve(bound, collect_metrics=True))
+            # engine seconds in turns, plain and metrics: ABBA BAAB
+            engine = {False: [plain.timings["engine_s"]],
+                      True: [ref.timings["engine_s"]]}
+            for with_metrics in (True, False, False, True, True, False):
+                engine[with_metrics].append(make().evolve(
+                    bound, collect_metrics=with_metrics).timings["engine_s"])
+            engine_plain, engine_metrics = engine[False], engine[True]
+            part = make().evolve(cut, checkpoint_path=path,
+                                 checkpoint_every=every)
+            size = os.path.getsize(path)
+            reset_counts()
+            resumed = make().evolve(bound, resume_from=path)
+            c = counts()
+            # the loader and the saver alone, on the cut run's file
+            s = make()
+            template = evolve_mod.init_carry(s.config, s.knowledge, s.A, SEED,
+                                             template=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = load_state(path, template, device=s.device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            save_state(os.path.join(CKPT_DIR, "again.npz"), carry)
+            save_s = time.perf_counter() - t0
+            del s, template, carry
+            m = ref.metrics
+            rows_ok = m["min_residual"].shape == (bound,) and \
+                not any(np.any(v[ref.iterations:]) for v in m.values()) and \
+                m["candidate_params"].shape == (bound, 0, 0)
+            say(13, f"{label}: uninterrupted {plain.iterations} iterations, "
+                    f"{plain.num_distinct} distinct; with collect_metrics "
+                    f"{'bit-equal' if same_report(ref, plain) else 'DIFFERENT: ' + report_diff(ref, plain)}"
+                    f", {len(m)} metrics of {m['min_residual'].shape[0]} rows "
+                    f"(zero after iteration {ref.iterations}: {rows_ok}); cut at "
+                    f"{part.iterations} (saved every {every}), resumed to "
+                    f"{resumed.iterations}: "
+                    f"{'bit-equal' if same_report(resumed, ref) else 'DIFFERENT: ' + report_diff(resumed, ref)}")
+            say(13, f"{label}: checkpoint {size} bytes, load {load_s:.4f} s, "
+                    f"save {save_s:.4f} s; engine seconds of four runs each "
+                    f"in turns, without metrics "
+                    f"{[round(x, 4) for x in engine_plain]} (median "
+                    f"{statistics.median(engine_plain):.4f}), with "
+                    f"{[round(x, 4) for x in engine_metrics]} (median "
+                    f"{statistics.median(engine_metrics):.4f}); "
+                    f"host syncs of the whole evolve {syncs_plain} without, "
+                    f"{syncs_ref} with ({ref.iterations} iterations); launches in "
+                    f"the resumed run: {c}")
+            if not (same_report(ref, plain) and same_report(resumed, ref)
+                    and rows_ok and part.iterations == cut):
+                raise AssertionError(f"{label}: the resumed run or the metrics run "
+                                     f"differs from the uninterrupted one")
+            if syncs_ref - syncs_plain > len(m) + 1:
+                raise AssertionError(f"{label}: collecting metrics added "
+                                     f"{syncs_ref - syncs_plain} host syncs (the "
+                                     f"final readback takes {len(m) + 1})")
+            for name in launched:
+                if c[name] <= 0:
+                    raise AssertionError(f"{label}: the resumed run launched "
+                                         f"{name} {c[name]} times")
+            if "K3" in launched:
+                check_k3_counts(c, SVD_N, label)
+            out[label] = dict(
+                iterations=ref.iterations, num_distinct=ref.num_distinct,
+                bytes=size, load_s=load_s, save_s=save_s,
+                engine_s=engine_plain, engine_metrics_s=engine_metrics,
+                syncs=syncs_plain, syncs_metrics=syncs_ref, launches=c)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
+def phase14(device):
+    """KAIROSAGE on the card: the BASELINE.md row 10 workload held to the
+    same run on the CPU, a stage-III batch of AGE_BATCH random tapes held to
+    the CPU, a two-cycle 4-island run, and the CLI. Returns the numbers."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from maus_tpu_torch.age import AgeConfig, GenesisEngine, IslandAGE, diffusion
+    from maus_tpu_torch.age.tape import compile_tree, generate_tree, stack_tapes
+
+    conf = AgeConfig(candidates_per_cycle=AGE_CANDIDATES)
+    runs = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        eng = GenesisEngine(conf, seed=SEED, device=dev)
+        runs[dev] = (eng.run(AGE_CYCLES), time.perf_counter() - t0, eng)
+    card, card_s, card_eng = runs[device]
+    cpu, cpu_s, cpu_eng = runs["cpu"]
+    for g, w in zip(card, cpu):
+        say(14, f"cycle {g['cycle']}: card best {g['best_fitness']:.6f} library "
+                f"{g['library_size']} (survivors {g['survivors']}, archived "
+                f"{g['archived']}); CPU best {w['best_fitness']:.6f} library "
+                f"{w['library_size']}")
+    dbest = max(abs(g["best_fitness"] - w["best_fitness"]) for g, w in zip(card, cpu))
+    say(14, f"{AGE_CYCLES}×{AGE_CANDIDATES} seed {SEED}: card {card_s:.3f} s wall, "
+            f"CPU {cpu_s:.3f} s wall (same process); max |Δ best| {dbest:.3e}")
+    if [g["library_size"] for g in card] != [w["library_size"] for w in cpu] \
+            or dbest > 1e-4:
+        lib_c = {g.canonical_form(): g.stability for g in card_eng.harmonic_library}
+        lib_p = {g.canonical_form(): g.stability for g in cpu_eng.harmonic_library}
+        for form in sorted(set(lib_c) ^ set(lib_p)):
+            say(14, f"  archived on one side only: {form[:60]} card "
+                    f"{lib_c.get(form)} CPU {lib_p.get(form)}")
+        raise AssertionError("the card's AGE trajectory parts from the CPU's")
+
+    rng = random.Random(SEED)
+    trees = [generate_tree(rng, 0, rng.randint(1, conf.max_tree_depth),
+                           conf.variables, conf.unary_ops, conf.binary_ops,
+                           conf.const_range) for _ in range(AGE_BATCH)]
+    tapes = stack_tapes([compile_tree(t, conf.variables) for t in trees])
+    n, t = conf.diffusion_n, conf.diffusion_t
+    base = torch.tensor(conf.base_kernel, dtype=torch.float32)
+    fits = {}
+    for dev in (device, "cpu"):
+        kernel = base.to(dev)
+        reps = 3 if dev == device else 1
+        if dev == device:
+            diffusion.run_diffusion_population(tapes, n, t, kernel)   # warm-up
+        times = []
+        for _ in range(reps):
+            if dev == device:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final, ok = diffusion.run_diffusion_population(tapes, n, t, kernel)
+            fit = diffusion.spread_fitness(final, ok).cpu().numpy()
+            times.append(time.perf_counter() - t0)
+        fits[dev] = (fit, ok.cpu().numpy(), statistics.median(times))
+    (f_card, ok_card, s_card), (f_cpu, ok_cpu, s_cpu) = fits[device], fits["cpu"]
+    # the same simulation at the workload's batch of AGE_CANDIDATES tapes
+    small = {k: v[:AGE_CANDIDATES] for k, v in tapes.items()}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diffusion.population_fitness(small, n, t, base.to(device)).cpu()
+        times.append(time.perf_counter() - t0)
+    s_small = statistics.median(times)
+    dfit = float(np.max(np.abs(f_card - f_cpu)))
+    ok_diff = int(np.sum(ok_card != ok_cpu))
+    say(14, f"stage III, {AGE_BATCH} random tapes, N = T = {n}: card "
+            f"{s_card:.4f} s ({AGE_BATCH / s_card:.1f} sims/s, median of 3), CPU "
+            f"{s_cpu:.4f} s ({AGE_BATCH / s_cpu:.1f} sims/s, {torch.get_num_threads()} "
+            f"threads); max |Δ fitness| {dfit:.3e}, ok flags differing {ok_diff}, "
+            f"{int(ok_card.sum())} members ok; {AGE_CANDIDATES} tapes on the card "
+            f"{s_small:.4f} s (median of 3)")
+    if dfit > 1e-4 or ok_diff:
+        raise AssertionError(f"stage III on the card parts from the CPU: "
+                             f"{dfit:.3e}, {ok_diff} ok flags")
+
+    t0 = time.perf_counter()
+    isl = IslandAGE(n_islands=4, config=conf, seed=SEED, device=device).run(2)
+    isl_s = time.perf_counter() - t0
+    say(14, f"IslandAGE, 4 islands, 2 cycles: best "
+            f"{[round(o['best_fitness'], 6) for o in isl]}, library total "
+            f"{[o['library_total'] for o in isl]}, {isl_s:.3f} s wall")
+    if not isl[-1]["library_total"] > 0:
+        raise AssertionError("the island run archived nothing")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "maus_tpu_torch", "age", "--cycles",
+                           str(AGE_CYCLES), "--json"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    say(14, f"python -m maus_tpu_torch age --cycles {AGE_CYCLES} --json: exit code "
+            f"{proc.returncode}, {len(lines)} lines, library "
+            f"{[ln['library_size'] for ln in lines]}, {cli_s:.2f} s")
+    if proc.returncode != 0 or [ln["library_size"] for ln in lines] != \
+            [g["library_size"] for g in card] or max(
+                abs(ln["best_fitness"] - g["best_fitness"])
+                for ln, g in zip(lines, card)) > 1e-4:
+        raise AssertionError(f"the age CLI: exit code {proc.returncode}, "
+                             f"stderr {proc.stderr[-2000:]}")
+    return dict(card_s=card_s, cpu_s=cpu_s, dbest=dbest, batch_s=s_card,
+                batch_small_s=s_small,
+                batch_cpu_s=s_cpu, dfit=dfit, islands_s=isl_s, cli_s=cli_s,
+                library=[g["library_size"] for g in card])
 
 
 def main():
@@ -1551,6 +1842,21 @@ def main():
         raise AssertionError(f"scenarios: exit code {rc}, counts {got} "
                              f"(want {SCENARIO_COUNTS})")
     say(12, f"scenarios: exit code 0, four passed in {wall:.2f} s")
+
+    # ---- phase 13: checkpoint/resume and metrics on the card ----------------
+    A, b = make_system(HEADLINE_N, COND, SEED, dev)
+    A_svd, _ = svd_operand(SVD_M, SVD_N, SVD_TOP, SEED, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phase13(maus_tpu_torch, A, b, A_svd, reset_counts, counts, check_k3_counts)
+    say(13, f"checkpoint/resume and metrics: {time.perf_counter() - t0:.1f} s")
+    del A, b, A_svd
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: KAIROSAGE on the card -------------------------------------
+    t0 = time.perf_counter()
+    phase14(dev)
+    say(14, f"KAIROSAGE: {time.perf_counter() - t0:.1f} s")
 
     k3u = update_rows[SVD_N]
     k64 = kernel_rows[torch.complex64]

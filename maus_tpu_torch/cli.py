@@ -1,18 +1,24 @@
 """Command-line interface of the port (counterpart of ``maus_tpu/cli.py``):
-the reference's demo scenarios and generated solve, eig and SVD runs, with
-the same arguments, defaults, output lines and exit codes.
+the reference's demo scenarios, generated solve, eig and SVD runs (with
+checkpoint and resume) and KAIROSAGE's genesis cycles, with the same
+arguments, defaults, output lines and exit codes.
 
     python -m maus_tpu_torch scenarios          # the reference's 4 scenarios
     python -m maus_tpu_torch solve --n 64       # generated Ax=b
     python -m maus_tpu_torch eig --n 8 --hermitian
     python -m maus_tpu_torch svd --rows 5 --cols 4
+    python -m maus_tpu_torch solve --checkpoint c.npz --checkpoint-every 2
+    python -m maus_tpu_torch solve --resume-from c.npz
+    python -m maus_tpu_torch age --cycles 5     # KAIROSAGE genesis cycles
 
 Runs go on the CUDA card; ``--cpu`` runs them on the CPU (complex128).
-Every subcommand exits 0 when the run reached its target, else 1.
+Every solver subcommand exits 0 when the run reached its target, else 1;
+``age`` exits 0.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import numpy as np
@@ -34,6 +40,11 @@ def _report_lines(rep, check=None):
                f"max err {check.max_abs_error:.3e}")
 
 
+def _ckpt_kwargs(args):
+    return dict(checkpoint_path=args.checkpoint, resume_from=args.resume_from,
+                checkpoint_every=args.checkpoint_every)
+
+
 def _finish(rep, args, A, b=None):
     from .utils import truth
 
@@ -51,7 +62,8 @@ def cmd_solve(args):
     else:
         A, b = gen.well_conditioned_system(args.n, seed=args.seed)
     rep = solve(A, b, tol=args.tol, max_iterations=args.iters,
-                num_candidates=args.cands, seed=args.seed, device=args.device)
+                num_candidates=args.cands, seed=args.seed, device=args.device,
+                **_ckpt_kwargs(args))
     return _finish(rep, args, A, b)
 
 
@@ -62,7 +74,8 @@ def cmd_eig(args):
     A = gen.laplace_like_complex(args.n, make_hermitian=args.hermitian,
                                  seed=args.seed)
     rep = eig(A, tol=args.tol, max_iterations=args.iters,
-              num_candidates=args.cands, seed=args.seed, device=args.device)
+              num_candidates=args.cands, seed=args.seed, device=args.device,
+              **_ckpt_kwargs(args))
     return _finish(rep, args, A)
 
 
@@ -73,7 +86,8 @@ def cmd_svd(args):
     A = gen.low_rank_svd_matrix(args.rows, args.cols, target_rank=args.rank,
                                 seed=args.seed)
     rep = svd(A, tol=args.tol, max_iterations=args.iters,
-              num_candidates=args.cands, seed=args.seed, device=args.device)
+              num_candidates=args.cands, seed=args.seed, device=args.device,
+              **_ckpt_kwargs(args))
     return _finish(rep, args, A)
 
 
@@ -110,6 +124,36 @@ def cmd_scenarios(args):
     return 0 if ok_all else 1
 
 
+def cmd_age(args):
+    from .age import AgeConfig, GenesisEngine, IslandAGE
+
+    conf = AgeConfig(candidates_per_cycle=args.cands)
+    if args.islands > 1:
+        isl = IslandAGE(n_islands=args.islands, config=conf, seed=args.seed,
+                        verbose=not args.json, device=args.device)
+        summaries = isl.run(args.cycles)
+        if args.json:
+            for s in summaries:
+                print(json.dumps(s))
+        else:
+            best = max(s["best_fitness"] for s in summaries)
+            print(f"best fitness {best:.3f} across {args.islands} islands, "
+                  f"library {summaries[-1]['library_total']}")
+        return 0
+    eng = GenesisEngine(conf, seed=args.seed, verbose=not args.json,
+                        device=args.device)
+    summaries = eng.run(args.cycles)
+    if args.json:
+        for s in summaries:
+            print(json.dumps(s))
+    else:
+        best = max(s["best_fitness"] for s in summaries)
+        print(f"best fitness {best:.3f}, library {len(eng.harmonic_library)}")
+        for g in eng.harmonic_library[:5]:
+            print(f"  fit={g.stability:.3f}  {g.tree.to_string()[:70]}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="maus_tpu_torch",
                                  description="MAUS solver on PyTorch and CUDA")
@@ -124,6 +168,12 @@ def main(argv=None):
     common.add_argument("--seed", type=int, default=0)
     common.add_argument("--check", action="store_true",
                         help="compare against LAPACK truth")
+    common.add_argument("--checkpoint", default=None, metavar="PATH",
+                        help="save the solver carry to PATH")
+    common.add_argument("--checkpoint-every", type=int, default=None,
+                        metavar="K", help="save every K iterations")
+    common.add_argument("--resume-from", default=None, metavar="PATH",
+                        help="resume from a carry saved by --checkpoint")
 
     p = sub.add_parser("solve", parents=[common])
     p.add_argument("--n", type=int, default=64)
@@ -144,6 +194,16 @@ def main(argv=None):
 
     p = sub.add_parser("scenarios")
     p.set_defaults(fn=cmd_scenarios)
+
+    p = sub.add_parser("age")
+    p.add_argument("--cycles", type=int, default=5)
+    p.add_argument("--cands", type=int, default=20)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--islands", type=int, default=1,
+                   help="island-model run: N independent populations, one "
+                        "batched device evaluation, ring migration")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_age)
 
     args = ap.parse_args(argv)
     args.device = "cpu" if args.cpu else None

@@ -128,6 +128,13 @@ class SolverConfig:
     target_num_solutions: Optional[int] = None
     stall_limit: int = 10            # stop when the best residual has not
                                      # improved for this many iterations
+    capture_history: bool = False    # collected metrics also carry each
+                                     # candidate's residual, α and status
+                                     # per iteration: O(iterations·K)
+    capture_param_history: bool = False  # ... and each candidate's iterate
+                                     # (pop.v) per iteration:
+                                     # O(iterations·K·N); independent of
+                                     # capture_history
 
     def __post_init__(self):
         object.__setattr__(self, "problem_type", ProblemType(self.problem_type))

@@ -15,7 +15,9 @@ Not carried over: the host-refactor driving and the hoisted large-N
 Hessenberg program (TPU workarounds), the TPU-QR halving of the finisher's
 chunk, ``_stage_operand``'s complex host-crossing workarounds
 (``utils/xfer.py``) and, in ``update_problem``, the host-refactor policy.
-The mesh paths, checkpointing and metrics capture wait for later slices.
+``evolve`` takes the JAX package's checkpoint and metrics arguments
+(``utils/checkpoint.py``, ``evolve.evolve_metrics``); the mesh paths wait
+for a later slice.
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.types import (ProblemKnowledge, ProblemType, SolverConfig,
-                          default_target_solutions)
+from ..core.types import (CandidateStatus, ProblemKnowledge, ProblemType,
+                          SolverConfig, default_target_solutions)
 from ..ops.batched_solve import shared_factor_qr
 from ..ops.refine import refine_gmres, refine_split
 from ..ops.refine_eig import refine_eigenpairs, refine_svd_triplets
+from ..utils.checkpoint import load_state, save_state
 from ..utils.precision import full_precision
 from . import evolve as evolve_mod
 from . import strategy as strat_mod
@@ -47,8 +50,11 @@ class SolutionReport:
     and ``v`` a numpy vector (complex128 once finished), and ``(σ, u, v)``
     for an SVD, with σ a Python float. ``timings``
     holds the host seconds of each phase of ``evolve`` (``setup_s``, the
-    shared Hessenberg reduction or eigh; ``engine_s``; ``finish_s``), each
-    phase ending in a device synchronisation."""
+    shared Hessenberg reduction or eigh; ``engine_s``, checkpoint loads and
+    saves included; ``finish_s``), each phase ending in a device
+    synchronisation. ``metrics``: with ``collect_metrics``, the stacked
+    per-iteration :class:`~maus_tpu_torch.solver.evolve.Metrics` as numpy
+    arrays by field name, else ``None``."""
 
     problem_type: ProblemType
     solutions: list
@@ -59,6 +65,7 @@ class SolutionReport:
     landscape_energy: float
     knowledge: ProblemKnowledge
     timings: Optional[dict] = None
+    metrics: Optional[dict] = None
 
     @property
     def converged(self) -> bool:
@@ -320,9 +327,35 @@ class MausSolver:
                                              cfg.dtype, self.device)
         self._fac_cache = None
 
-    def evolve(self, max_iterations: int = 100) -> SolutionReport:
+    def evolve(self, max_iterations: int = 100, collect_metrics: bool = False,
+               checkpoint_path: Optional[str] = None,
+               resume_from: Optional[str] = None,
+               checkpoint_every: Optional[int] = None,
+               reopen: bool = False) -> SolutionReport:
         """Run the evolution loop, then take each distinct solution to tol
-        with its finisher."""
+        with its finisher. ``max_iterations`` bounds the carry's total
+        iteration count, a resumed one's included.
+
+        ``collect_metrics``: return the per-iteration metrics in
+        ``SolutionReport.metrics`` (one row per iteration up to
+        ``max_iterations``, zero rows after the stop).
+        ``resume_from``: continue from a carry saved by a run with
+        ``checkpoint_path`` (same config and shapes).
+        ``checkpoint_path``: save the carry there when the loop ends.
+        ``checkpoint_every=k``: also save it every k iterations; the loop
+        runs in chunks of k iterations of the same step, so a run resumed
+        from any of these saves reproduces the uninterrupted run bit for
+        bit.
+        ``reopen``: the checkpoint was written before an
+        ``update_problem`` swap; its convergence bookkeeping is reset and
+        the carried factorization rebuilt against the current operand at
+        the carried Ψ, so the population runs on against the new one."""
+        if checkpoint_every is not None:
+            if checkpoint_path is None:
+                raise ValueError("checkpoint_every requires checkpoint_path")
+            if int(checkpoint_every) < 1:
+                raise ValueError(f"checkpoint_every must be >= 1, got "
+                                 f"{checkpoint_every}")
         cfg, kn = self.config, self.knowledge
         timings = {}
         with full_precision():
@@ -331,10 +364,16 @@ class MausSolver:
             _sync(self.device)
             timings["setup_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            carry = evolve_mod.evolve_while(cfg, kn, self.A, self.b, self._seed,
-                                            max_iterations, self.target_solutions,
-                                            caches=caches)
+            carry = None if resume_from is None else \
+                self._load_resume_carry(resume_from, reopen)
+            every = max(max_iterations, 1) if checkpoint_every is None \
+                else int(checkpoint_every)
+            carry, metrics = self._evolve_chunked(
+                max_iterations, collect_metrics, checkpoint_path, every, carry,
+                caches)
             del caches
+            if checkpoint_path is not None:
+                save_state(checkpoint_path, carry)
             _sync(self.device)
             timings["engine_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -387,7 +426,60 @@ class MausSolver:
             residuals=residuals, iterations=int(carry.iteration),
             num_distinct=len(solutions), target_solutions=self.target_solutions,
             landscape_energy=float(strat.landscape_energy), knowledge=kn,
-            timings=timings)
+            timings=timings, metrics=_metrics_dict(metrics))
+
+    def _run_loop(self, max_iterations: int, collect_metrics: bool, carry0,
+                  caches):
+        """(carry, stacked metrics or None) of the loop from ``carry0``
+        (a fresh carry when ``None``) up to ``max_iterations``."""
+        args = (self.config, self.knowledge, self.A, self.b, self._seed,
+                max_iterations, self.target_solutions)
+        if collect_metrics:
+            return evolve_mod.evolve_metrics(*args, carry0=carry0, caches=caches)
+        return evolve_mod.evolve_while(*args, carry0=carry0, caches=caches), None
+
+    def _evolve_chunked(self, max_iterations: int, collect_metrics: bool,
+                        checkpoint_path: str, every: int, carry, caches):
+        """The loop in chunks of ``every`` iterations (one chunk without
+        ``checkpoint_every``), the carry saved at each chunk's end but the
+        last (which ``evolve`` saves). The chunks stop where one loop
+        stops: the same stop condition is read after each (an SVD's
+        against its dynamic target)."""
+        cfg = self.config
+        if carry is None:
+            carry = evolve_mod.init_carry(cfg, self.knowledge, self.A, self._seed)
+        chunks, bound = [], int(carry.iteration)
+        while bound < max_iterations:
+            bound = min(bound + every, max_iterations)
+            begin = int(carry.iteration)
+            carry, m = self._run_loop(bound, collect_metrics, carry, caches)
+            if m is not None:   # the rows of the iterations that ran
+                ran = int(carry.iteration) - begin
+                chunks.append(evolve_mod.map_metrics(lambda x: x[:ran], m))
+            if bound >= max_iterations or bool(evolve_mod._stop_condition(
+                    cfg, self.target_solutions, carry)):
+                break   # evolve saves the last carry
+            save_state(checkpoint_path, carry)
+        if not collect_metrics:
+            return carry, None
+        # then zero rows up to max_iterations, as one loop gives them
+        chunks.append(self._run_loop(max_iterations, True, carry, caches)[1])
+        return carry, evolve_mod.map_metrics(lambda *xs: torch.cat(xs), *chunks)
+
+    def _load_resume_carry(self, path: str, reopen: bool):
+        """The carry saved at ``path``, loaded against a template of this
+        solver's carry (no O(N³) factorization is computed for the
+        template). With ``reopen``, :func:`_reopen_carry`, and the carried
+        factorization, which belongs to the old operand, rebuilt against the
+        current one at the carried Ψ."""
+        cfg, kn = self.config, self.knowledge
+        template = evolve_mod.init_carry(cfg, kn, self.A, self._seed, template=True)
+        carry = load_state(path, template, device=self.device)
+        if reopen:
+            carry = _reopen_carry(cfg, carry)
+            if carry.fac is not None:
+                carry.fac = evolve_mod._refactor(kn, self.A, carry.psi_cached)
+        return carry
 
     def _maybe_reuse_factors(self, carry) -> None:
         """Reuse the loop's carried factorization as refinement's
@@ -503,16 +595,57 @@ class MausSolver:
         return {k: b for k, b in best.items() if b[0] is not None}
 
 
+def _metrics_dict(metrics) -> Optional[dict]:
+    """Stacked metrics as numpy arrays by field name (``None`` stays)."""
+    if metrics is None:
+        return None
+    return {f.name: getattr(metrics, f.name).cpu().numpy()
+            for f in dataclasses.fields(metrics)}
+
+
+def _reopen_carry(cfg: SolverConfig, carry):
+    """A restored carry reopened against a swapped operand (the reference's
+    scenario-1 swap runs the same population on against the new system).
+    Its convergence bookkeeping refers to the old operand: converged
+    candidates drop to REFINING, keeping their iterates as warm starts, with
+    α back at its initial value; the residuals, the distinct count and the
+    stop counters reset."""
+    pop = carry.pop
+    conv = pop.status == int(CandidateStatus.CONVERGED)
+    inf = torch.full_like(pop.residual, float("inf"))
+    pop = dataclasses.replace(
+        pop,
+        status=torch.where(conv, torch.full_like(pop.status,
+                                                 int(CandidateStatus.REFINING)),
+                           pop.status),
+        alpha=torch.where(conv, torch.full_like(pop.alpha, cfg.alpha_initial),
+                          pop.alpha),
+        residual=inf, prev_residual=inf.clone())
+    strat = dataclasses.replace(
+        carry.strat, num_distinct=torch.zeros_like(carry.strat.num_distinct))
+    return dataclasses.replace(
+        carry, pop=pop, strat=strat,
+        best_residual=torch.full_like(carry.best_residual, float("inf")),
+        stall_count=torch.zeros_like(carry.stall_count))
+
+
 def solve(A, b, tol: float = 1e-8, max_iterations: int = 100,
           num_candidates: Optional[int] = None, seed: int = 0,
-          config: Optional[SolverConfig] = None, device=None) -> SolutionReport:
+          config: Optional[SolverConfig] = None,
+          checkpoint_path: Optional[str] = None,
+          resume_from: Optional[str] = None,
+          checkpoint_every: Optional[int] = None,
+          device=None) -> SolutionReport:
     """Solve Ax = b on ``device`` (default: the card — a CUDA tensor's own,
-    else ``cuda``; pass ``device="cpu"`` to run on the CPU)."""
+    else ``cuda``; pass ``device="cpu"`` to run on the CPU).
+    ``checkpoint_path``, ``resume_from``, ``checkpoint_every``: as in
+    :meth:`MausSolver.evolve`."""
     s = MausSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
                    device=device)
-    return s.evolve(max_iterations)
+    return s.evolve(max_iterations, checkpoint_path=checkpoint_path,
+                    resume_from=resume_from, checkpoint_every=checkpoint_every)
 
 
 def eig(A, tol: float = 1e-8, max_iterations: int = 200,
@@ -520,6 +653,9 @@ def eig(A, tol: float = 1e-8, max_iterations: int = 200,
         config: Optional[SolverConfig] = None,
         target_solutions: Optional[int] = None,
         knowledge: Optional[ProblemKnowledge] = None,
+        checkpoint_path: Optional[str] = None,
+        resume_from: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
         device=None) -> SolutionReport:
     """Eigenpairs of a square A on ``device`` (default: the card, as for
     :func:`solve`). A general A runs against its shared Hessenberg form; a
@@ -527,13 +663,15 @@ def eig(A, tol: float = 1e-8, max_iterations: int = 200,
     ``config.eigh_max_n``, else runs a deflated Lanczos per candidate.
     ``target_solutions``: how many distinct pairs to search for (default N,
     clamped to the number of candidates). ``knowledge``: a precomputed
-    :class:`ProblemKnowledge`, which skips the diagnosis."""
+    :class:`ProblemKnowledge`, which skips the diagnosis. The checkpoint
+    arguments: as in :meth:`MausSolver.evolve`."""
     s = MausSolver(A, ProblemType.EIGENVALUE,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
                    target_solutions=target_solutions, knowledge=knowledge,
                    device=device)
-    return s.evolve(max_iterations)
+    return s.evolve(max_iterations, checkpoint_path=checkpoint_path,
+                    resume_from=resume_from, checkpoint_every=checkpoint_every)
 
 
 def svd(A, tol: float = 1e-6, max_iterations: int = 300,
@@ -541,6 +679,9 @@ def svd(A, tol: float = 1e-6, max_iterations: int = 300,
         config: Optional[SolverConfig] = None,
         target_solutions: Optional[int] = None,
         knowledge: Optional[ProblemKnowledge] = None,
+        checkpoint_path: Optional[str] = None,
+        resume_from: Optional[str] = None,
+        checkpoint_every: Optional[int] = None,
         device=None) -> SolutionReport:
     """Singular triplets (σ, u, v) of an (M, N) operand A on ``device``
     (default: the card, as for :func:`solve`). ``target_solutions``: how
@@ -548,10 +689,11 @@ def svd(A, tol: float = 1e-6, max_iterations: int = 300,
     rank, clamped to the number of candidates); the run re-derives the
     target from the converged σ spectrum and reports its last value.
     ``knowledge``: a precomputed :class:`ProblemKnowledge`, which skips the
-    diagnosis."""
+    diagnosis. The checkpoint arguments: as in :meth:`MausSolver.evolve`."""
     s = MausSolver(A, ProblemType.SVD,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
                    target_solutions=target_solutions, knowledge=knowledge,
                    device=device)
-    return s.evolve(max_iterations)
+    return s.evolve(max_iterations, checkpoint_path=checkpoint_path,
+                    resume_from=resume_from, checkpoint_every=checkpoint_every)

@@ -2,11 +2,14 @@
 
 Counterpart of ``maus_tpu/solver/evolve.py`` (``_effective_psi``,
 ``make_iteration``, ``init_carry``, ``_use_hessenberg``, ``_use_shared_eigh``,
-``_setup_caches``, ``_stop_condition``, ``evolve_while``). The JAX
-``lax.while_loop`` becomes an eager Python loop with a stop check after every
-iteration; the ``lax.cond`` around the shared refactorization becomes a
-Python branch on a host read. Per-iteration order is the reference's:
-diagnostics → strategy adjustment → candidate step → population management.
+``_setup_caches``, ``_stop_condition``, ``evolve_while``, ``Metrics`` and
+``evolve_scan``). The JAX ``lax.while_loop`` becomes an eager Python loop
+with a stop check after every iteration; the ``lax.cond`` around the shared
+refactorization becomes a Python branch on a host read. The metrics path
+(:func:`evolve_metrics`) runs the same loop and keeps each iteration's
+:class:`Metrics` row on the device; the rows are stacked once at the end.
+Per-iteration order is the reference's: diagnostics → strategy adjustment
+→ candidate step → population management.
 The linear path carries its shared factorization across iterations and
 rebuilds it only when the strategy's Ψ rung changes; the eig path carries no
 factorization and builds its shared one-time form once per evolve: the
@@ -29,13 +32,62 @@ import torch
 from ..core.types import (CandidateStatus, Population, ProblemKnowledge,
                           ProblemType, SolverConfig, StrategyState,
                           initial_strategy)
-from ..ops.batched_solve import shared_factor_hpd, shared_factor_qr
+from ..ops.batched_solve import (CholFactors, QRFactors, _want_rinv,
+                                 shared_factor_hpd, shared_factor_qr)
 from ..ops.hessenberg import HessCache, reduce_hessenberg_auto
 from ..ops.regularize import pow10, psi_magnitude
 from . import candidate as cand
 from . import hermitian as herm
 from . import population as popmgmt
 from . import strategy as strat_mod
+
+
+@dataclasses.dataclass
+class Metrics:
+    """Per-iteration population statistics, under the JAX package's names:
+    one row of 0-d tensors per iteration, or rows stacked along a leading
+    axis. The ``candidate_*`` fields hold each candidate's residual, α and
+    status ((K,) a row) when ``cfg.capture_history`` is set, and its iterate
+    ((K, N) a row) when ``cfg.capture_param_history`` is; otherwise they
+    are zero-size ((0,) and (0, 0) a row)."""
+
+    landscape_energy: torch.Tensor
+    avg_residual: torch.Tensor
+    avg_stuckness: torch.Tensor
+    num_distinct: torch.Tensor
+    min_residual: torch.Tensor
+    psi_aggression: torch.Tensor
+    threshold: torch.Tensor
+    solve_fail_frac: torch.Tensor
+    candidate_residuals: torch.Tensor
+    candidate_alpha: torch.Tensor
+    candidate_status: torch.Tensor
+    candidate_params: torch.Tensor
+
+
+def _metrics_row(cfg: SolverConfig, pop: Population, strat: StrategyState,
+                 solve_fail_frac: torch.Tensor) -> Metrics:
+    """One iteration's row, computed on the device without a host read."""
+    if cfg.capture_history:
+        hist = (pop.residual, pop.alpha, pop.status)
+    else:
+        hist = tuple(t.new_zeros((0,)) for t in (pop.residual, pop.alpha,
+                                                 pop.status))
+    return Metrics(
+        landscape_energy=strat.landscape_energy,
+        avg_residual=strat.avg_residual,
+        avg_stuckness=strat.avg_stuckness,
+        num_distinct=strat.num_distinct,
+        min_residual=torch.min(torch.where(
+            torch.isfinite(pop.residual), pop.residual,
+            torch.full_like(pop.residual, float("inf")))),
+        psi_aggression=strat.psi_aggression,
+        threshold=strat.threshold,
+        solve_fail_frac=solve_fail_frac,
+        candidate_residuals=hist[0], candidate_alpha=hist[1],
+        candidate_status=hist[2],
+        candidate_params=pop.v if cfg.capture_param_history
+        else pop.v.new_zeros((0, 0)))
 
 
 @dataclasses.dataclass
@@ -93,8 +145,10 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
                    A: torch.Tensor, b: Optional[torch.Tensor],
                    target_solutions: int,
                    hess_cache: Optional[HessCache] = None,
-                   eigh_cache: Optional[herm.EighCache] = None):
-    """Build the single-iteration function ``carry → carry``.
+                   eigh_cache: Optional[herm.EighCache] = None,
+                   with_metrics: bool = False):
+    """Build the single-iteration function ``carry → carry``, or
+    ``carry → (carry, Metrics row)`` with ``with_metrics``.
     ``hess_cache``: the shared Hessenberg form of A (general eig path);
     ``eigh_cache``: the shared eigh of A (Hermitian eig path; without it a
     Hermitian operand takes the deflated-Lanczos step)."""
@@ -159,17 +213,36 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
                                     carry.best_residual)
         stall_count = torch.where(improved, torch.zeros_like(carry.stall_count),
                                   carry.stall_count + 1)
-        return EvolveCarry(pop=pop, strat=strat, fac=fac, psi_cached=psi_eff,
-                           iteration=carry.iteration + 1,
-                           best_residual=best_residual, stall_count=stall_count)
+        new = EvolveCarry(pop=pop, strat=strat, fac=fac, psi_cached=psi_eff,
+                          iteration=carry.iteration + 1,
+                          best_residual=best_residual, stall_count=stall_count)
+        if with_metrics:
+            return new, _metrics_row(cfg, pop, strat, stats.solve_fail_frac)
+        return new
 
     return iteration
 
 
+def _fac_template(knowledge: ProblemKnowledge, A: torch.Tensor):
+    """The shared factorization's bundle with meta tensors of its shapes
+    and dtypes in place of the O(N³) factors."""
+    n = A.shape[-1]
+
+    def meta():
+        return torch.empty((n, n), dtype=A.dtype, device="meta")
+
+    if knowledge.is_positive_definite:
+        return CholFactors(meta())
+    return QRFactors(meta(), meta(), meta() if _want_rinv(A) else None)
+
+
 def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
-               seed: int) -> EvolveCarry:
+               seed: int, template: bool = False) -> EvolveCarry:
     """Initial population and strategy; for a linear system also the shared
-    factorization at the first Ψ (an eigenproblem carries none)."""
+    factorization at the first Ψ (an eigenproblem carries none). With
+    ``template`` the factorization is not computed: its leaves are meta
+    tensors of the right shapes, which is all a checkpoint's loader needs
+    (``utils/checkpoint.load_state``)."""
     device = A.device
     lam_center, lam_scale = _spectral_moments(A)
     pop = cand.init_population(cfg, seed, knowledge.shape, device=device,
@@ -177,7 +250,8 @@ def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
     strat = initial_strategy(cfg, knowledge, device=device)
     if cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
         psi0 = _effective_psi(cfg, strat, _anorm(A))
-        fac = _refactor(knowledge, A, psi0)
+        fac = _fac_template(knowledge, A) if template \
+            else _refactor(knowledge, A, psi0)
     else:
         fac, psi0 = None, torch.tensor(0.0, dtype=torch.float32, device=device)
     return EvolveCarry(
@@ -233,6 +307,29 @@ def _stop_condition(cfg: SolverConfig, target_solutions: int,
         (carry.stall_count >= cfg.stall_limit)
 
 
+def _loop(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
+          b: Optional[torch.Tensor], seed: int, max_iterations: int,
+          target_solutions: int, carry0: Optional[EvolveCarry],
+          caches: Optional[Caches], with_metrics: bool):
+    """The loop under :func:`evolve_while` and :func:`evolve_metrics`:
+    (last carry, the metrics rows that ran)."""
+    if caches is None:
+        caches = _setup_caches(cfg, knowledge, A)
+    step = make_iteration(cfg, knowledge, A, b, target_solutions,
+                          hess_cache=caches.hess, eigh_cache=caches.eigh,
+                          with_metrics=with_metrics)
+    carry = carry0 if carry0 is not None else init_carry(cfg, knowledge, A, seed)
+    rows = []
+    while not bool((carry.iteration >= max_iterations) |
+                   _stop_condition(cfg, target_solutions, carry)):
+        if with_metrics:
+            carry, row = step(carry)
+            rows.append(row)
+        else:
+            carry = step(carry)
+    return carry, rows
+
+
 def evolve_while(cfg: SolverConfig, knowledge: ProblemKnowledge,
                  A: torch.Tensor, b: Optional[torch.Tensor], seed: int,
                  max_iterations: int, target_solutions: int,
@@ -243,12 +340,36 @@ def evolve_while(cfg: SolverConfig, knowledge: ProblemKnowledge,
     shared factorizations (:func:`_setup_caches`); built here when not
     given. The caller sets the matmul precision
     (``utils/precision.full_precision``, as ``MausSolver.evolve`` does)."""
-    if caches is None:
-        caches = _setup_caches(cfg, knowledge, A)
-    step = make_iteration(cfg, knowledge, A, b, target_solutions,
-                          hess_cache=caches.hess, eigh_cache=caches.eigh)
-    carry = carry0 if carry0 is not None else init_carry(cfg, knowledge, A, seed)
-    while not bool((carry.iteration >= max_iterations) |
-                   _stop_condition(cfg, target_solutions, carry)):
-        carry = step(carry)
-    return carry
+    return _loop(cfg, knowledge, A, b, seed, max_iterations, target_solutions,
+                 carry0, caches, with_metrics=False)[0]
+
+
+def evolve_metrics(cfg: SolverConfig, knowledge: ProblemKnowledge,
+                   A: torch.Tensor, b: Optional[torch.Tensor], seed: int,
+                   max_iterations: int, target_solutions: int,
+                   carry0: Optional[EvolveCarry] = None,
+                   caches: Optional[Caches] = None
+                   ) -> tuple[EvolveCarry, Metrics]:
+    """:func:`evolve_while` that also returns the stacked :class:`Metrics`,
+    one row for each iteration from the carry's to ``max_iterations``: the
+    rows of the iterations that ran, then all-zero rows from where the stop
+    condition held (the contract of the JAX ``evolve_scan``). The rows stay
+    on the device until one stack at the end, so collecting them adds no
+    host read per iteration."""
+    start = int(carry0.iteration) if carry0 is not None else 0
+    carry, ran = _loop(cfg, knowledge, A, b, seed, max_iterations,
+                       target_solutions, carry0, caches, with_metrics=True)
+    zero = _metrics_row(cfg, carry.pop, carry.strat,
+                        torch.zeros((), dtype=torch.float32, device=A.device))
+    pad = map_metrics(lambda z: z.new_zeros(
+        (max(max_iterations - start, 0) - len(ran),) + z.shape), zero)
+    if not ran:
+        return carry, pad
+    return carry, map_metrics(lambda *xs: torch.cat([torch.stack(xs[:-1]), xs[-1]]),
+                              *ran, pad)
+
+
+def map_metrics(fn, *ms: Metrics) -> Metrics:
+    """``fn`` applied field by field across :class:`Metrics` values."""
+    return Metrics(**{f.name: fn(*(getattr(m, f.name) for m in ms))
+                      for f in dataclasses.fields(Metrics)})

@@ -54,11 +54,23 @@ def test_solve_exit_code_follows_convergence(capsys):
     assert cli.main(["--cpu", "eig", "--n", "8", "--iters", "0"]) == 1
 
 
-def test_parser_has_only_the_ported_subcommands():
-    for argv in (["age"], ["bench"], ["eig", "--mesh-model", "2"],
-                 ["solve", "--checkpoint", "x"], ["--cpu-devices", "2", "scenarios"]):
+def test_parser_has_only_the_ported_subcommands(monkeypatch):
+    """``age`` and the checkpoint flags are ported; ``bench`` (the port's
+    benchmark) and the mesh flags are not."""
+    for argv in (["bench"], ["eig", "--mesh-model", "2"],
+                 ["--cpu-devices", "2", "scenarios"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
+    parsed = []
+    for name in ("cmd_age", "cmd_solve"):
+        monkeypatch.setattr(cli, name, lambda args: parsed.append(args) or 0)
+    assert cli.main(["age", "--cycles", "2", "--cands", "4", "--seed", "3",
+                     "--islands", "2", "--json"]) == 0
+    assert cli.main(["solve", "--checkpoint", "x", "--checkpoint-every", "2",
+                     "--resume-from", "y"]) == 0
+    age, solve = parsed
+    assert (age.cycles, age.cands, age.seed, age.islands, age.json) == (2, 4, 3, 2, True)
+    assert (solve.checkpoint, solve.checkpoint_every, solve.resume_from) == ("x", 2, "y")
 
 
 def test_new_modules_import_without_jax():
@@ -78,4 +90,4 @@ def test_module_entry_point():
     out = subprocess.run([sys.executable, "-m", "maus_tpu_torch", "--help"],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    assert "{solve,eig,svd,scenarios}" in out.stdout
+    assert "{solve,eig,svd,scenarios,age}" in out.stdout

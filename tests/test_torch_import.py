@@ -24,7 +24,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import maus_tpu_torch.ops.kernels.residual, maus_tpu_torch.utils.convert\n"
         "import maus_tpu_torch.ops.kernels.hess_solve, maus_tpu_torch.ops.refine_eig\n"
         "import maus_tpu_torch.ops.kernels.cgemm, maus_tpu_torch.ops.kernels.lu\n"
-        "import maus_tpu_torch.utils.truth\n"
+        "import maus_tpu_torch.utils.truth, maus_tpu_torch.utils.checkpoint\n"
+        "import maus_tpu_torch.utils.metrics, maus_tpu_torch.age.viz\n"
+        "import maus_tpu_torch.age, maus_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'maus_tpu.')) or m == 'maus_tpu')\n"
         "assert not bad, bad\n"
