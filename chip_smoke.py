@@ -12,7 +12,9 @@ as an A/B; 16 eigenpairs of a
 Hermitian complex64 operand at 4096² (deflated Lanczos) and 2048² (shared
 eigh), both finished through P4; the reference's four scenarios through
 the CLI; checkpoint/resume and per-iteration metrics of the linear and SVD
-runs; and KAIROSAGE's genesis cycles with stage III on the card.
+runs; KAIROSAGE's genesis cycles with stage III on the card; and the mesh
+paths (solve/eig/svd(mesh=), MeshSolver, sharded checkpoints, IslandAGE
+over replica ranks, the CLI's --mesh-model) on two ranks sharing the card.
 
     python3 chip_smoke.py
 
@@ -22,7 +24,8 @@ Phases, each printing its own lines:
      K3, P3 and P4 from
      maus_tpu_torch/csrc/ (one nvcc per source, all started together);
   2. K1 (the true-FP64 residual) against its plain PyTorch version at the
-     main path's shapes and a few ragged ones, within 1e-15·‖A‖_F·‖x‖, and
+     main path's shapes (the mesh paths' (N, N/2) rank shards among them)
+     and a few ragged ones, within 1e-15·‖A‖_F·‖x‖, and
      the median time of each and of torch.addmv at complex128;
   3. maus_tpu_torch.solve at 4096², κ = 1e6, tol 1e-8, 16 candidates, checked
      by an independent FP64 residual, with K1's launch count;
@@ -113,7 +116,28 @@ Phases, each printing its own lines:
      of 4096 random tapes (N = T = 50) held to the CPU within 1e-4, with
      simulations per second; a two-cycle IslandAGE of 4 islands; and
      python -m maus_tpu_torch age --cycles 5 --json, equal to the card's
-     run.
+     run;
+ 15. the mesh paths, two ranks sharing the card over gloo (NCCL refuses two
+     ranks on one GPU), launched by maus_tpu_torch/parallel/launch.py after
+     phase 1 built the kernels: solve(mesh=) of phase 3's system, certified
+     ≤ 1e-8 by an independent FP64 residual, with K1 launched on each rank;
+     a MeshSolver run cut at 2 iterations (saved every one) and resumed in
+     a fresh solver bit-equal to solve(mesh=), then a swap of b certified
+     the same way; svd(mesh=) of phase 9's operand (≥ 16 triplets, σ within
+     1e-8 of 0.8^k, each ≤ 1e-6); dist_hessenberg of phase 6's operand and
+     one dist_hess_solve at (32, 4096) timed alone; eig(mesh=) of it (≥ 16
+     pairs, each ≤ 1e-8 by an independent complex128 residual); the
+     default backend (NCCL) refusing two ranks on one card with ValueError;
+     an IslandAGE of 4 islands × 2 cycles with stage III over two replica
+     ranks, equal to one device; and python -m maus_tpu_torch --backend
+     gloo solve --mesh-model 2 --check. On each rank K1 is held against its
+     plain version on the shard, x slice and b part the certification
+     passes it. Each path prints every rank's wall seconds, K1 launches and
+     peak memory above what the rank held before it, the shard shapes the
+     path reports holding (each (rows, N/2), checked; the linear paths' peak
+     below the full unsharded operand and factors, checked), the
+     collectives' counts and bytes by kind, and the backend, beside phase
+     3/6/9's single-device numbers.
 On every solver path K3 launches once for each trailing update of the
 path's LUs, and PR 3's CUDA-core body never (checked).
 Then a JSON line with the kernel table, and as the last line
@@ -176,6 +200,14 @@ SCENARIO_COUNTS = ["1/1", "8/8", "8/8", "2/2"]
 # removed after the phase
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         ".smoke_checkpoints")
+# the mesh paths (phase 15): two ranks share the card over gloo (NCCL
+# refuses two ranks on one GPU), which runs the collectives on CUDA tensors
+MESH_RANKS = 2
+MESH_BACKEND = "gloo"
+MESH_EIG_N = EIG_N
+MESH_HESS_K = 32
+MESH_ISLANDS, MESH_ISLAND_CYCLES = 4, 2
+MESH_CLI_N = 1024
 # KAIROSAGE (phase 14): BASELINE.md row 10's workload, 5 cycles of 20
 # candidates, and a stage-III batch of random tapes
 AGE_CYCLES = 5
@@ -440,7 +472,7 @@ def eig_and_check(maus_tpu_torch, hess_solve, A, label, hermitian=False):
     out = dict(wall_s=wall, iterations=rep.iterations,
                num_distinct=rep.num_distinct, worst_of_best=max(indep),
                worst_reported=max(rep.residuals[i] for i in order),
-               launches=launches, **rep.timings)
+               launches=launches, lams=lams, **rep.timings)
     if hermitian:
         w = torch.linalg.eigvalsh(A128).cpu().numpy()
         lam_err = max(float(np.min(np.abs(w - lam))) for lam in lams)
@@ -925,6 +957,413 @@ def phase14(device):
                 library=[g["library_size"] for g in card])
 
 
+def _mesh_report(rep):
+    """What phase 15 keeps of a report: plain Python and numpy."""
+    return dict(solutions=rep.solutions, residuals=rep.residuals,
+                iterations=rep.iterations, num_distinct=rep.num_distinct,
+                target=rep.target_solutions, timings=rep.timings,
+                shards=rep.shards)
+
+
+def _phase15_rank(mesh, files):
+    """Phase 15's body on each rank: every mesh path through the entry
+    points, each with the K1 count, the collective counters and the peak
+    memory set to 0 just before it and read just after (the peak as the
+    rise over what the rank held when the path began); K1 against its plain
+    version on the shard the certification passes it; then every rank's
+    numbers gathered to all."""
+    import numpy as np
+    import torch
+
+    import maus_tpu_torch as mt
+    from maus_tpu_torch import MeshSolver, ProblemType
+    from maus_tpu_torch.ops.kernels import residual
+    from maus_tpu_torch.parallel import comm
+    from maus_tpu_torch.parallel.dist_hessenberg import (dist_hess_solve,
+                                                         dist_hessenberg)
+    from maus_tpu_torch.parallel.dist_refine import stage_spectral
+    from maus_tpu_torch.parallel.mesh import column_range
+    from maus_tpu_torch.utils.checkpoint import shard_path
+
+    dev = mesh.device
+    load = {k: np.load(v, mmap_mode="r") for k, v in files.items()
+            if k.endswith("_npy")}
+    out, per_rank = {}, []
+
+    cuda = dev.type == "cuda"
+
+    def run(name, fn):
+        residual.LAUNCHES = 0
+        held = 0
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+        with comm.counting() as counts:
+            t0 = time.perf_counter()
+            res = fn()
+            if cuda:
+                torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        out[name] = dict(result=res, calls=dict(counts.calls),
+                         bytes=dict(counts.bytes),
+                         largest=max(counts.largest.values()))
+        per_rank.append((name, [wall, residual.LAUNCHES, (torch.cuda.max_memory_allocated(
+            dev) - held) / 2**30 if cuda else 0.0]))
+        if mesh.rank == 0:
+            say(15, f"rank 0: {name} ran in {wall:.3f} s")
+
+    A, b = load["A_npy"], np.asarray(load["b_npy"])
+    lin = dict(tol=TOL, num_candidates=CANDIDATES, max_iterations=MAX_ITERATIONS,
+               seed=SEED)
+    run("solve", lambda: _mesh_report(mt.solve(A, b, mesh=mesh, **lin)))
+
+    # cut at 2 iterations with a save every iteration, resumed in a fresh
+    # solver; then a swap of b in the resumed solver
+    ckpt = os.path.join(files["dir"], "mesh_linear.npz")
+    kw = dict(b_vector=b, initial_num_candidates=CANDIDATES,
+              global_convergence_tol=TOL, seed=SEED)
+    run("cut", lambda: _mesh_report(MeshSolver(
+        A, ProblemType.SOLVE_LINEAR_SYSTEM, mesh, **kw).evolve(
+            max_iterations=2, checkpoint_path=ckpt, checkpoint_every=1)))
+    with np.load(shard_path(ckpt, mesh.index("model"))) as f:
+        out["cut"]["file_shards"] = [tuple(f["fac.q"].shape),
+                                     tuple(f["fac.r"].shape)]
+    out["cut"]["file_bytes"] = os.path.getsize(shard_path(ckpt, mesh.index("model")))
+    solver = MeshSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM, mesh, **kw)
+    run("resume", lambda: _mesh_report(solver.evolve(
+        max_iterations=MAX_ITERATIONS, resume_from=ckpt)))
+    solver.update_problem(b_vector=np.asarray(load["b2_npy"]))
+    run("swap", lambda: _mesh_report(solver.evolve(max_iterations=MAX_ITERATIONS)))
+    # K1 on the solver's own full-precision shard, with the x slice and the
+    # b part its certification passes (b on the first rank, zeros on the
+    # others), against the plain version
+    A_true, b_true = solver._stA[1], solver._stb[1]
+    x = torch.from_numpy(out["swap"]["result"]["solutions"][0][0]).to(dev)
+    lo, hi = column_range(x.shape[0], mesh)
+    b_part = b_true if mesh.index("model") == 0 else torch.zeros_like(b_true)
+    x_loc = x[lo:hi].contiguous()
+    r_k = residual.true_residual(A_true, x_loc, b_part)
+    r_p = residual.true_residual_plain(A_true, x_loc, b_part)
+    k1_err = float((r_k - r_p).abs().max())
+    k1_bar = 1e-15 * float(torch.linalg.vector_norm(A_true.to(torch.complex128))) \
+        * float(torch.linalg.vector_norm(x_loc))
+    if not k1_err <= k1_bar:
+        raise AssertionError(f"rank {mesh.rank}: K1 disagrees with plain on its "
+                             f"{tuple(A_true.shape)} {A_true.dtype} shard: "
+                             f"{k1_err:.3e} > {k1_bar:.3e}")
+    k1_rows = comm.gather(torch.tensor([[k1_err, k1_bar]], dtype=torch.float64,
+                                       device=dev), mesh.index("model"),
+                          mesh.model, mesh, dim=0)
+    out["k1_shard"] = dict(shape=tuple(A_true.shape), dtype=str(A_true.dtype),
+                           ranks=k1_rows.tolist())
+    del solver, A_true, b_true, r_k, r_p
+    comm.barrier(mesh)
+    os.remove(shard_path(ckpt, mesh.index("model")))
+    if mesh.index("model") == 0:
+        os.remove(ckpt)
+
+    S = load["S_npy"]
+    run("svd", lambda: _mesh_report(mt.svd(
+        S, tol=SVD_TOL, max_iterations=SVD_MAX_ITERATIONS,
+        num_candidates=SVD_CANDIDATES, target_solutions=SVD_TOP, seed=SEED,
+        mesh=mesh)))
+
+    E = load["E_npy"]
+    E_loc, _ = stage_spectral(mesh, E)
+    hess = []
+    run("hessenberg", lambda: hess.append(dist_hessenberg(mesh, E_loc)))
+    hess = hess[0]
+    out["hessenberg"]["shards"] = dict(A=tuple(E_loc.shape), H=tuple(hess.h.shape),
+                                       Q=tuple(hess.q.shape))
+    g = torch.Generator().manual_seed(SEED)
+    K = MESH_HESS_K
+    n = E.shape[0]
+    B = torch.complex(torch.randn(K, n, generator=g),
+                      torch.randn(K, n, generator=g)).to(dev, hess.h.dtype)
+    shifts = torch.complex(torch.randn(K, generator=g),
+                           torch.randn(K, generator=g)).to(dev, hess.h.dtype)
+    W = []
+    run("hess_solve", lambda: W.append(dist_hess_solve(mesh, hess.h, shifts, B)))
+    # its relative residual ‖(H − λ_k)w_k − b_k‖/‖b_k‖ from the shards
+    lo = mesh.index("model") * hess.h.shape[1]
+    HW = comm.all_reduce(W[0][:, lo:lo + hess.h.shape[1]] @ hess.h.T, mesh)
+    out["hess_solve"]["rel_residual"] = float(
+        (torch.linalg.vector_norm(HW - shifts[:, None] * W[0] - B, dim=-1)
+         / torch.linalg.vector_norm(B, dim=-1)).max())
+    del hess, W, HW, E_loc
+    if cuda:
+        torch.cuda.empty_cache()
+    run("eig", lambda: _mesh_report(mt.eig(
+        E, tol=TOL, num_candidates=EIG_CANDIDATES, target_solutions=EIG_TARGETS,
+        max_iterations=EIG_MAX_ITERATIONS, seed=SEED, mesh=mesh)))
+
+    rows = comm.gather(torch.tensor([v for _, v in per_rank], dtype=torch.float64,
+                                    device=dev)[None],
+                       mesh.index("model"), mesh.model, mesh, dim=0)
+    for i, (name, _) in enumerate(per_rank):
+        out[name]["ranks"] = rows[:, i].tolist()
+    out["backend"] = mesh.backend
+    return out
+
+
+def _phase15_islands(mesh):
+    """IslandAGE with stage III split over the replica ranks, and the same
+    run on one device, on each rank."""
+    from maus_tpu_torch.age import AgeConfig, IslandAGE
+
+    conf = AgeConfig(candidates_per_cycle=AGE_CANDIDATES)
+    t0 = time.perf_counter()
+    split = IslandAGE(n_islands=MESH_ISLANDS, config=conf, seed=SEED,
+                      mesh=mesh).run(MESH_ISLAND_CYCLES)
+    t1 = time.perf_counter()
+    one = IslandAGE(n_islands=MESH_ISLANDS, config=conf, seed=SEED,
+                    device=mesh.device).run(MESH_ISLAND_CYCLES)
+    return split, one, t1 - t0, time.perf_counter() - t1
+
+
+def phase15(single):
+    """The mesh paths on the card: two ranks sharing it over gloo, launched
+    by parallel/launch.py after phase 1 built the kernels. ``single``: phase
+    3/6/9's numbers, which the mesh runs are held against."""
+    import numpy as np
+    import torch
+
+    from maus_tpu_torch import cli
+    from maus_tpu_torch.ops.kernels import residual
+    from maus_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    files = {"dir": CKPT_DIR}
+
+    def save(name, t):
+        files[name + "_npy"] = os.path.join(CKPT_DIR, f"mesh_{name}.npy")
+        np.save(files[name + "_npy"], t.cpu().numpy())
+
+    A, b = make_system(HEADLINE_N, COND, SEED, dev)
+    save("A", A)
+    save("b", b)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    b2 = cnormal(g, (HEADLINE_N,), torch.complex64, dev)
+    save("b2", b2)
+    S, sig = svd_operand(SVD_M, SVD_N, SVD_TOP, SEED, dev)
+    save("S", S)
+    E = eig_operand(MESH_EIG_N, SEED, dev)
+    save("E", E)
+    t0 = time.perf_counter()
+    try:
+        res = launch.run(_phase15_rank, MESH_RANKS, files, backend=MESH_BACKEND,
+                         device="cuda:0")
+    finally:
+        for k, v in files.items():
+            if k.endswith("_npy"):
+                os.remove(v)
+    say(15, f"{MESH_RANKS} ranks sharing {torch.cuda.get_device_name(0)} over "
+            f"{res['backend']}: all paths in "
+            f"{time.perf_counter() - t0:.1f} s (spawn included)")
+
+    def line(name, what):
+        r = res[name]
+        ranks = "; ".join(f"rank {i}: {w:.3f} s, K1 {int(k)}, peak +"
+                          f"{p:.3f} GiB" for i, (w, k, p) in enumerate(r["ranks"]))
+        say(15, f"{what}: {ranks}; collectives {r['calls']} calls, "
+                f"{r['bytes']} bytes a rank (largest {r['largest']}); shards "
+                f"{shards_of(name)}")
+
+    def k1_each_rank(name):
+        return [int(k) for _, k, _ in res[name]["ranks"]]
+
+    def shards_of(name):
+        """The shards a path reported holding (an entry point's report,
+        else the function's own outputs)."""
+        r = res[name]
+        return r["shards"] if "shards" in r else (r["result"] or {}).get("shards")
+
+    def sharded(name, rows, cols, names):
+        """The path reported holding exactly ``names``, each a (rows,
+        cols/m) shard."""
+        got = shards_of(name)
+        if tuple(got) != names or \
+                any(s_ != (rows, cols // m) for s_ in got.values()):
+            raise AssertionError(f"{name}: shards {got}")
+
+    def below_full(name, full_bytes):
+        """Each rank's peak rise stayed below the full unsharded operand
+        and factors."""
+        peaks = [p for _, _, p in res[name]["ranks"]]
+        if not max(peaks) < full_bytes / 2**30:
+            raise AssertionError(f"{name}: peak rise {peaks} GiB a rank, not "
+                                 f"below {full_bytes / 2**30:.3f} GiB unsharded")
+
+    b64 = b.to(torch.complex128)
+
+    def certified(rep, rhs, label):
+        x = torch.from_numpy(rep["solutions"][0][0]).to(dev)
+        rel = float(torch.linalg.vector_norm(
+            residual.true_residual_plain(A, x, rhs.to(torch.complex128)))
+            / torch.linalg.vector_norm(rhs.to(torch.complex128)))
+        if not (rep["num_distinct"] == 1 and rep["residuals"][0] <= TOL
+                and rel <= TOL):
+            raise AssertionError(f"{label}: reported {rep['residuals']}, "
+                                 f"independent {rel:.3e} > {TOL}")
+        return rel
+
+    # linear
+    rep = res["solve"]["result"]
+    rel = certified(rep, b, "mesh solve")
+    if min(k1_each_rank("solve")) <= 0:
+        raise AssertionError(f"mesh solve: K1 launches by rank "
+                             f"{k1_each_rank('solve')}")
+    n, m = HEADLINE_N, MESH_RANKS
+    # the working copy is the certified one (the system is complex64): A,
+    # Q and R at full size
+    full_linear = 3 * n * n * 8
+    for name in ("solve", "cut", "resume", "swap"):
+        sharded(name, n, n, ("A", "A_true", "Q", "R"))
+        below_full(name, full_linear)
+    if res["cut"]["file_shards"] != [(n, n // m)] * 2:
+        raise AssertionError(f"cut: file shards {res['cut']['file_shards']}")
+    k1 = res["k1_shard"]
+    say(15, f"K1 vs plain on each rank's {k1['shape']} {k1['dtype'][6:]} shard "
+            f"with its x slice and b part: " + "; ".join(
+                f"rank {i}: max|Δ| {e:.3e} <= {b_:.3e}"
+                for i, (e, b_) in enumerate(k1["ranks"])))
+    line("solve", f"solve(mesh=) {n}² κ={COND:g}: {rep['iterations']} iterations, "
+                  f"certified {rep['residuals'][0]:.3e} (independent "
+                  f"{rel:.3e}; single device: {single['solve']['iterations']} "
+                  f"iterations, {single['solve']['reported']:.3e}); "
+                  f"engine {rep['timings']['engine_s']:.3f} s, refinement "
+                  f"{rep['timings']['finish_s']:.3f} s")
+    want, got = res["solve"]["result"], res["resume"]["result"]
+    same = want["iterations"] == got["iterations"] and \
+        want["residuals"] == got["residuals"] and \
+        np.array_equal(want["solutions"][0][0], got["solutions"][0][0])
+    if not same:
+        raise AssertionError(f"mesh resume: {got['iterations']} iterations, "
+                             f"{got['residuals']} vs {want['iterations']}, "
+                             f"{want['residuals']}")
+    line("cut", f"MeshSolver cut at {res['cut']['result']['iterations']} "
+                f"iterations (saved every one; shard file "
+                f"{res['cut']['file_bytes']} bytes a rank)")
+    line("resume", "resumed from the file in a fresh MeshSolver: bit-equal to "
+                   "solve(mesh=)")
+    rel2 = certified(res["swap"]["result"], b2, "mesh swap")
+    line("swap", f"update_problem(b_vector=b2): {res['swap']['result']['iterations']}"
+                 f" iterations, certified {res['swap']['result']['residuals'][0]:.3e}"
+                 f" (independent {rel2:.3e})")
+    del A, b, b64, b2
+
+    # SVD
+    rep = res["svd"]["result"]
+    top = sorted(range(rep["num_distinct"]),
+                 key=lambda i: -rep["solutions"][i][0])[:SVD_TOP]
+    sig_h = sig[:SVD_TOP].cpu().numpy()
+    sig_err, worst = 0.0, 0.0
+    for j, i in enumerate(top):
+        s_, u_, v_ = rep["solutions"][i]
+        u, v = (torch.from_numpy(np.asarray(t, np.complex128)).to(dev) for t in (u_, v_))
+        worst = max(worst, float(torch.linalg.vector_norm(S @ v - s_ * u)
+                                 + torch.linalg.vector_norm(S.mH @ u - s_ * v)))
+        sig_err = max(sig_err, abs(s_ - sig_h[j]) / sig_h[j])
+    if not (rep["num_distinct"] >= SVD_TOP and sig_err <= 1e-8 and worst <= SVD_TOL):
+        raise AssertionError(f"mesh svd: {rep['num_distinct']} triplets, σ off "
+                             f"{sig_err:.3e}, residual {worst:.3e}")
+    sharded("svd", SVD_M, SVD_N, ("A", "A64"))
+    line("svd", f"svd(mesh=) {SVD_M}×{SVD_N}: {rep['num_distinct']} distinct "
+                f"triplets in {rep['iterations']} iterations, top {SVD_TOP} σ "
+                f"within {sig_err:.3e} of 0.8^k, each at ≤ {worst:.3e} "
+                f"(single device: {single['svd']['num_distinct']} in "
+                f"{single['svd']['iterations']} iterations, "
+                f"{single['svd']['worst_top']:.3e}); engine "
+                f"{rep['timings']['engine_s']:.3f} s, finisher "
+                f"{rep['timings']['finish_s']:.3f} s")
+    del S
+
+    # eig
+    ne = MESH_EIG_N
+    sharded("hessenberg", ne, ne, ("A", "H", "Q"))
+    line("hessenberg", f"dist_hessenberg {ne}²")
+    hs = res["hess_solve"]
+    if not hs["rel_residual"] <= 1e-3:
+        raise AssertionError(f"dist_hess_solve: relative residual "
+                             f"{hs['rel_residual']:.3e}")
+    line("hess_solve", f"dist_hess_solve ({MESH_HESS_K}, {ne}) complex64 alone: "
+                       f"max relative residual {hs['rel_residual']:.3e}")
+    rep = res["eig"]["result"]
+    sharded("eig", ne, ne, ("A", "A64", "H", "Q"))
+    E128 = E.to(torch.complex128)
+    order = np.argsort(rep["residuals"])[:EIG_TARGETS]
+    indep, lams = [], []
+    for i in order:
+        lam, v_ = rep["solutions"][i]
+        v = torch.from_numpy(np.asarray(v_, np.complex128)).to(dev)
+        indep.append(float(torch.linalg.vector_norm(E128 @ v - lam * v)
+                           / torch.linalg.vector_norm(v)))
+        lams.append(lam)
+    if not (rep["num_distinct"] >= EIG_TARGETS and max(indep) <= TOL):
+        raise AssertionError(f"mesh eig: {rep['num_distinct']} pairs, worst "
+                             f"independent residual {max(indep):.3e}")
+    shared = "not compared (another size)"
+    if ne == EIG_N:
+        ref = np.asarray(single["eig"]["lams"])
+        shared = sum(bool(np.min(np.abs(ref - lam)) <= 1e-8) for lam in lams)
+    line("eig", f"eig(mesh=) {ne}²: {rep['num_distinct']} distinct pairs in "
+                f"{rep['iterations']} iterations, best {EIG_TARGETS} at ≤ "
+                f"{max(indep):.3e} (independent complex128), {shared} of them "
+                f"within 1e-8 of a phase-6 eigenvalue (single device: "
+                f"{single['eig']['num_distinct']} pairs in "
+                f"{single['eig']['iterations']} iterations, "
+                f"{single['eig']['worst_of_best']:.3e}); Hessenberg "
+                f"{rep['timings']['setup_s']:.3f} s, engine "
+                f"{rep['timings']['engine_s']:.3f} s, finisher "
+                f"{rep['timings']['finish_s']:.3f} s")
+    del E, E128
+    torch.cuda.empty_cache()
+
+    # no silent backend: NCCL (the default) refuses two ranks on one card
+    try:
+        launch.run(_phase15_islands, MESH_RANKS, device="cuda:0")
+    except ValueError as e:
+        if "NCCL refuses" not in str(e):
+            raise
+        say(15, f"default backend with {MESH_RANKS} ranks on one card: "
+                f"ValueError ({e})")
+    else:
+        raise AssertionError("two ranks on one card ran without naming gloo")
+
+    # IslandAGE over two replica ranks, against one device
+    t0 = time.perf_counter()
+    split, one, t_split, t_one = launch.run(
+        _phase15_islands, MESH_RANKS, backend=MESH_BACKEND, device="cuda:0",
+        replica=MESH_RANKS, model=1)
+    best = [s_["best_fitness"] for s_ in split]
+    if best != [s_["best_fitness"] for s_ in one] or \
+            [s_["library_total"] for s_ in split] != [s_["library_total"] for s_ in one]:
+        raise AssertionError(f"IslandAGE over replica ranks: best {best}, one "
+                             f"device {[s_['best_fitness'] for s_ in one]}")
+    say(15, f"IslandAGE {MESH_ISLANDS} islands × {MESH_ISLAND_CYCLES} cycles, "
+            f"stage III over {MESH_RANKS} replica ranks: equal "
+            f"to one device "
+            f"(best {best}); {t_split:.3f} s split, {t_one:.3f} s one device, "
+            f"{time.perf_counter() - t0:.1f} s with the spawn")
+
+    # the CLI, once
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--backend", MESH_BACKEND, "solve", "--n", str(MESH_CLI_N),
+                       "--mesh-model", str(MESH_RANKS), "--check"])
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or not lines[0].startswith("SOLVE_LINEAR_SYSTEM: 1/1") or \
+            "matched 1/1" not in lines[-1]:
+        raise AssertionError(f"mesh CLI: exit code {rc}, {lines}")
+    say(15, f"python -m maus_tpu_torch --backend gloo solve --n {MESH_CLI_N} "
+            f"--mesh-model {MESH_RANKS} --check: exit code 0, {lines[0]}; "
+            f"{lines[-1].strip()}; {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -980,8 +1419,13 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     kernel_rows = {}
+    # the mesh paths certify with K1 on each rank's (N, N/2) shard: phase
+    # 15's complex64 system and the CLI's complex128 one
     for shape, dtype in (((HEADLINE_N, HEADLINE_N), torch.complex64),
                          ((HEADLINE_N, HEADLINE_N), torch.complex128),
+                         ((HEADLINE_N, HEADLINE_N // MESH_RANKS), torch.complex64),
+                         ((HEADLINE_N, HEADLINE_N // MESH_RANKS), torch.complex128),
+                         ((MESH_CLI_N, MESH_CLI_N // MESH_RANKS), torch.complex128),
                          ((4097, 4097), torch.complex64),
                          ((1000, 777), torch.complex64),
                          ((1, 513), torch.complex64)):
@@ -1018,6 +1462,7 @@ def main():
     runs = [solve_and_check(maus_tpu_torch, residual, A, b, "4096² solve")
             for _ in range(3)]
     best = min(runs, key=lambda r: r["wall_s"])
+    single = {"solve": best}
     say(3, f"{HEADLINE_N}² κ={COND:g} converged; iterations {best['iterations']}, "
            f"refinement certifications (K1 launches) {best['launches']}, "
            f"residual {best['reported']:.3e} (independent {best['independent']:.3e}), "
@@ -1412,6 +1857,7 @@ def main():
     say(6, f"first eig {EIG_N}²: {first}; peak device memory "
            f"{eig_peak / 2**30:.2f} GiB")
     warm = eig_and_check(maus_tpu_torch, hess_solve, A, "4096² eig")
+    single["eig"] = warm
     say(6, f"{EIG_N}² general eig: {warm['num_distinct']} distinct pairs "
            f"(target {EIG_TARGETS}) in {warm['iterations']} iterations, K2 "
            f"launches {warm['launches']}; best {EIG_TARGETS} at ≤ "
@@ -1755,6 +2201,7 @@ def main():
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     warm = svd_and_check(maus_tpu_torch, A_svd, sig, f"{SVD_M}×{SVD_N} svd")
+    single["svd"] = warm
     say(9, f"{SVD_M}×{SVD_N} svd: {warm['num_distinct']} distinct triplets "
            f"(target {warm['target']}, converged {warm['converged']}) in "
            f"{warm['iterations']} iterations; top {SVD_TOP} σ within "
@@ -1857,6 +2304,11 @@ def main():
     t0 = time.perf_counter()
     phase14(dev)
     say(14, f"KAIROSAGE: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 15: the mesh paths, two ranks sharing the card ---------------
+    t0 = time.perf_counter()
+    phase15(single)
+    say(15, f"mesh paths: {time.perf_counter() - t0:.1f} s")
 
     k3u = update_rows[SVD_N]
     k64 = kernel_rows[torch.complex64]

@@ -25,7 +25,7 @@ points run on the card unless the caller passes ``device="cpu"``. The
 package imports torch and numpy, never jax.
 """
 from .core.types import ProblemKnowledge, ProblemType, SolverConfig
-from .solver.api import MausSolver, SolutionReport, eig, solve, svd
+from .solver.api import MausSolver, MeshSolver, SolutionReport, eig, solve, svd
 
-__all__ = ["MausSolver", "ProblemKnowledge", "ProblemType", "SolutionReport",
+__all__ = ["MausSolver", "MeshSolver", "ProblemKnowledge", "ProblemType", "SolutionReport",
            "SolverConfig", "eig", "solve", "svd"]

@@ -6,10 +6,13 @@ reference's cycle (stages I, II and IV on the host, a random stream and a
 novelty archive per island); every cycle, all islands' candidates compile
 to one stacked tape batch that one diffusion simulation evaluates on the
 device; every ``migrate_every`` cycles the top-k archived genomes of each
-island join the next island's weave pool (a ring). The JAX package can
-shard the batch over a device mesh; here it runs on one device, and the
-mesh form waits for the port's mesh paths. The trajectory does not depend
-on where the batch runs.
+island join the next island's weave pool (a ring). With a ``mesh`` whose
+replica axis has r > 1 ranks (every rank running the same ``IslandAGE``),
+the batch is padded to a multiple of r and each replica rank simulates its
+contiguous part; the fitness comes back to every rank by a scatter into
+the full batch and one all_reduce over the replica axis, which adds zeros
+and so returns each rank's values unchanged. The trajectory does not
+depend on where the batch runs.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..parallel import comm
+from ..parallel.mesh import REPLICA_AXIS
 from . import diffusion
 from .engine import AgeConfig, GenesisEngine, Genome
 from .tape import compile_tree, stack_tapes
@@ -24,14 +29,19 @@ from .tape import compile_tree, stack_tapes
 
 class IslandAGE:
     """M islands × the reference's genesis cycle, with a shared batched
-    stage-III evaluation on ``device`` (default: the card) and ring
-    migration."""
+    stage-III evaluation on ``device`` (default: the card; the mesh's
+    device with ``mesh``), split over the mesh's replica ranks when there
+    are several, and ring migration."""
 
     def __init__(self, n_islands: int = 4, config: Optional[AgeConfig] = None,
                  seed: int = 0, migrate_every: int = 5,
-                 migrate_top_k: int = 2, verbose: bool = False, device=None):
+                 migrate_top_k: int = 2, verbose: bool = False, device=None,
+                 mesh=None):
         if n_islands < 1:
             raise ValueError("need at least one island")
+        if mesh is not None and device is None:
+            device = mesh.device
+        self.mesh = mesh
         self.conf = config or AgeConfig()
         self.engines = [GenesisEngine(self.conf, seed=seed + 1009 * i,
                                       verbose=False, device=device)
@@ -49,9 +59,23 @@ class IslandAGE:
             return np.zeros((0,), np.float32)
         tapes = stack_tapes([compile_tree(g.tree, c.variables)
                              for g in genomes])
-        return diffusion.population_fitness(
-            tapes, c.diffusion_n, c.diffusion_t,
-            self.engines[0]._base_kernel).cpu().numpy()
+        kernel = self.engines[0]._base_kernel
+        r = 1 if self.mesh is None else self.mesh.size(REPLICA_AXIS)
+        if r == 1:
+            return diffusion.population_fitness(
+                tapes, c.diffusion_n, c.diffusion_t, kernel).cpu().numpy()
+        P = len(genomes)
+        pad = (-P) % r
+        if pad:
+            tapes = {k: np.concatenate([v, v[:1].repeat(pad, axis=0)])
+                     for k, v in tapes.items()}
+        per = (P + pad) // r
+        lo = self.mesh.index(REPLICA_AXIS) * per
+        mine = diffusion.population_fitness(
+            {k: v[lo:lo + per] for k, v in tapes.items()}, c.diffusion_n,
+            c.diffusion_t, kernel)
+        return comm.gather(mine, lo, P + pad, self.mesh, dim=0,
+                           axis=REPLICA_AXIS)[:P].cpu().numpy()
 
     # -- migration (ring) ----------------------------------------------------
     def _migrate(self):

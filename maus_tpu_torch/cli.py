@@ -10,10 +10,18 @@ arguments, defaults, output lines and exit codes.
     python -m maus_tpu_torch solve --checkpoint c.npz --checkpoint-every 2
     python -m maus_tpu_torch solve --resume-from c.npz
     python -m maus_tpu_torch age --cycles 5     # KAIROSAGE genesis cycles
+    python -m maus_tpu_torch solve --n 256 --mesh-model 2   # over 2 ranks
+    python -m maus_tpu_torch --cpu --cpu-devices 2 solve --mesh-model 2
 
 Runs go on the CUDA card; ``--cpu`` runs them on the CPU (complex128).
-Every solver subcommand exits 0 when the run reached its target, else 1;
-``age`` exits 0.
+``--mesh-model M`` runs ``solve``/``eig``/``svd`` over a (1, M) mesh of M
+ranks started from this process (``parallel/launch.py``), the operand
+column-sharded: NCCL with a card per rank, or ``--backend gloo`` for ranks
+that share a card. ``--cpu --cpu-devices N`` runs N ranks on the CPU over
+gloo (a (N/M, M) mesh). No backend is chosen for the caller: ``--cpu
+--mesh-model M`` without ``--cpu-devices`` or ``--backend gloo`` raises the
+library's ``ValueError``. Every solver subcommand exits 0 when the run
+reached its target, else 1; ``age`` exits 0.
 """
 from __future__ import annotations
 
@@ -45,6 +53,35 @@ def _ckpt_kwargs(args):
                 checkpoint_every=args.checkpoint_every)
 
 
+def _mesh_rank(mesh, kind: str, A, b, kw: dict):
+    """One rank of a ``--mesh-model`` run: the entry point with the mesh."""
+    from .solver import api
+
+    operands = (A,) if b is None else (A, b)
+    return getattr(api, kind)(*operands, mesh=mesh, **kw)
+
+
+def _run(args, kind: str, A, b=None):
+    """The subcommand's solver call: on this process's device, or over
+    ``--mesh-model`` ranks, whose rank 0 report comes back."""
+    from .solver import api
+
+    kw = dict(tol=args.tol, max_iterations=args.iters,
+              num_candidates=args.cands, seed=args.seed, **_ckpt_kwargs(args))
+    m = args.mesh_model
+    if m <= 1:
+        operands = (A,) if b is None else (A, b)
+        return getattr(api, kind)(*operands, device=args.device, **kw)
+    world = args.cpu_devices or m
+    if world % m:
+        raise ValueError(f"--cpu-devices {world} is not a multiple of "
+                         f"--mesh-model {m}")
+    from .parallel import launch
+
+    return launch.run(_mesh_rank, world, kind, A, b, kw, backend=args.backend,
+                      device=args.device, replica=world // m, model=m)
+
+
 def _finish(rep, args, A, b=None):
     from .utils import truth
 
@@ -54,41 +91,29 @@ def _finish(rep, args, A, b=None):
 
 
 def cmd_solve(args):
-    from . import solve
     from .problems import generators as gen
 
     if args.ill_conditioned:
         A, b = gen.ill_conditioned_system(args.n, cond=args.cond, seed=args.seed)
     else:
         A, b = gen.well_conditioned_system(args.n, seed=args.seed)
-    rep = solve(A, b, tol=args.tol, max_iterations=args.iters,
-                num_candidates=args.cands, seed=args.seed, device=args.device,
-                **_ckpt_kwargs(args))
-    return _finish(rep, args, A, b)
+    return _finish(_run(args, "solve", A, b), args, A, b)
 
 
 def cmd_eig(args):
-    from . import eig
     from .problems import generators as gen
 
     A = gen.laplace_like_complex(args.n, make_hermitian=args.hermitian,
                                  seed=args.seed)
-    rep = eig(A, tol=args.tol, max_iterations=args.iters,
-              num_candidates=args.cands, seed=args.seed, device=args.device,
-              **_ckpt_kwargs(args))
-    return _finish(rep, args, A)
+    return _finish(_run(args, "eig", A), args, A)
 
 
 def cmd_svd(args):
-    from . import svd
     from .problems import generators as gen
 
     A = gen.low_rank_svd_matrix(args.rows, args.cols, target_rank=args.rank,
                                 seed=args.seed)
-    rep = svd(A, tol=args.tol, max_iterations=args.iters,
-              num_candidates=args.cands, seed=args.seed, device=args.device,
-              **_ckpt_kwargs(args))
-    return _finish(rep, args, A)
+    return _finish(_run(args, "svd", A), args, A)
 
 
 def cmd_scenarios(args):
@@ -159,6 +184,13 @@ def main(argv=None):
                                  description="MAUS solver on PyTorch and CUDA")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (complex128) instead of the CUDA card")
+    ap.add_argument("--cpu-devices", type=int, default=None, metavar="N",
+                    help="with --cpu: run a --mesh-model run over N gloo "
+                         "ranks on the CPU")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="collective backend of a --mesh-model run on the "
+                         "card (default nccl, a card per rank; gloo lets "
+                         "ranks share a card)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     common = argparse.ArgumentParser(add_help=False)
@@ -168,6 +200,9 @@ def main(argv=None):
     common.add_argument("--seed", type=int, default=0)
     common.add_argument("--check", action="store_true",
                         help="compare against LAPACK truth")
+    common.add_argument("--mesh-model", type=int, default=0, metavar="M",
+                        help="run distributed over a (1, M) mesh of M ranks "
+                             "(column-sharded operand, full engine)")
     common.add_argument("--checkpoint", default=None, metavar="PATH",
                         help="save the solver carry to PATH")
     common.add_argument("--checkpoint-every", type=int, default=None,
@@ -207,6 +242,12 @@ def main(argv=None):
 
     args = ap.parse_args(argv)
     args.device = "cpu" if args.cpu else None
+    if args.cpu_devices is not None:
+        if not args.cpu:
+            ap.error("--cpu-devices needs --cpu")
+        if args.backend == "nccl":
+            ap.error("--cpu-devices runs gloo ranks; NCCL needs CUDA cards")
+        args.backend = "gloo"
     return args.fn(args)
 
 

@@ -16,8 +16,12 @@ Hessenberg program (TPU workarounds), the TPU-QR halving of the finisher's
 chunk, ``_stage_operand``'s complex host-crossing workarounds
 (``utils/xfer.py``) and, in ``update_problem``, the host-refactor policy.
 ``evolve`` takes the JAX package's checkpoint and metrics arguments
-(``utils/checkpoint.py``, ``evolve.evolve_metrics``); the mesh paths wait
-for a later slice.
+(``utils/checkpoint.py``, ``evolve.evolve_metrics``).
+
+The mesh half (``solve/eig/svd(mesh=)``, :class:`MeshSolver`) is the JAX
+package's: every rank of a ``parallel.mesh.Mesh`` calls the same entry
+point, holds its column shard of the operand, and runs the same engine with
+the factorizations column-sharded, then the distributed finishers.
 """
 from __future__ import annotations
 
@@ -33,6 +37,13 @@ from ..core.types import (CandidateStatus, ProblemKnowledge, ProblemType,
 from ..ops.batched_solve import shared_factor_qr
 from ..ops.refine import refine_gmres, refine_split
 from ..ops.refine_eig import refine_eigenpairs, refine_svd_triplets
+from ..parallel.dist_hessenberg import dist_hessenberg
+from ..parallel.dist_qr import (panel_block, refine_distributed,
+                                stage_A, stage_b, stage_operands)
+from ..parallel.dist_refine import (dist_refine_eigenpairs, dist_refine_svd,
+                                    stage_spectral)
+from ..parallel.mesh import MODEL_AXIS
+from ..parallel.placement import place_operands
 from ..utils.checkpoint import load_state, save_state
 from ..utils.precision import full_precision
 from . import evolve as evolve_mod
@@ -54,7 +65,9 @@ class SolutionReport:
     saves included; ``finish_s``), each phase ending in a device
     synchronisation. ``metrics``: with ``collect_metrics``, the stacked
     per-iteration :class:`~maus_tpu_torch.solver.evolve.Metrics` as numpy
-    arrays by field name, else ``None``."""
+    arrays by field name, else ``None``. ``shards``: on the mesh paths, the
+    shape of every operand and factor shard this rank held in the run, by
+    name (``None`` on one device)."""
 
     problem_type: ProblemType
     solutions: list
@@ -66,6 +79,7 @@ class SolutionReport:
     knowledge: ProblemKnowledge
     timings: Optional[dict] = None
     metrics: Optional[dict] = None
+    shards: Optional[dict] = None
 
     @property
     def converged(self) -> bool:
@@ -428,43 +442,17 @@ class MausSolver:
             landscape_energy=float(strat.landscape_energy), knowledge=kn,
             timings=timings, metrics=_metrics_dict(metrics))
 
-    def _run_loop(self, max_iterations: int, collect_metrics: bool, carry0,
-                  caches):
-        """(carry, stacked metrics or None) of the loop from ``carry0``
-        (a fresh carry when ``None``) up to ``max_iterations``."""
-        args = (self.config, self.knowledge, self.A, self.b, self._seed,
-                max_iterations, self.target_solutions)
-        if collect_metrics:
-            return evolve_mod.evolve_metrics(*args, carry0=carry0, caches=caches)
-        return evolve_mod.evolve_while(*args, carry0=carry0, caches=caches), None
-
     def _evolve_chunked(self, max_iterations: int, collect_metrics: bool,
                         checkpoint_path: str, every: int, carry, caches):
-        """The loop in chunks of ``every`` iterations (one chunk without
-        ``checkpoint_every``), the carry saved at each chunk's end but the
-        last (which ``evolve`` saves). The chunks stop where one loop
-        stops: the same stop condition is read after each (an SVD's
-        against its dynamic target)."""
+        """:func:`_drive_chunked` on this solver's problem."""
         cfg = self.config
         if carry is None:
             carry = evolve_mod.init_carry(cfg, self.knowledge, self.A, self._seed)
-        chunks, bound = [], int(carry.iteration)
-        while bound < max_iterations:
-            bound = min(bound + every, max_iterations)
-            begin = int(carry.iteration)
-            carry, m = self._run_loop(bound, collect_metrics, carry, caches)
-            if m is not None:   # the rows of the iterations that ran
-                ran = int(carry.iteration) - begin
-                chunks.append(evolve_mod.map_metrics(lambda x: x[:ran], m))
-            if bound >= max_iterations or bool(evolve_mod._stop_condition(
-                    cfg, self.target_solutions, carry)):
-                break   # evolve saves the last carry
-            save_state(checkpoint_path, carry)
-        if not collect_metrics:
-            return carry, None
-        # then zero rows up to max_iterations, as one loop gives them
-        chunks.append(self._run_loop(max_iterations, True, carry, caches)[1])
-        return carry, evolve_mod.map_metrics(lambda *xs: torch.cat(xs), *chunks)
+        return _drive_chunked(
+            cfg, self.knowledge, self.A, self.b, self._seed,
+            self.target_solutions, max_iterations, collect_metrics, every,
+            carry, caches,
+            lambda c: save_state(checkpoint_path, c))
 
     def _load_resume_carry(self, path: str, reopen: bool):
         """The carry saved at ``path``, loaded against a template of this
@@ -595,6 +583,40 @@ class MausSolver:
         return {k: b for k, b in best.items() if b[0] is not None}
 
 
+def _drive_chunked(cfg: SolverConfig, kn: ProblemKnowledge, A, b, seed: int,
+                   target: int, max_iterations: int, collect_metrics: bool,
+                   every: int, carry, caches, save):
+    """The loop from ``carry`` in chunks of ``every`` iterations (one chunk
+    without ``checkpoint_every``), ``save(carry)`` at each chunk's end but
+    the last (which the caller saves). The chunks stop where one loop
+    stops: the same stop condition is read after each (an SVD's against its
+    dynamic target). Returns ``(carry, stacked metrics or None)``."""
+    def run(bound, with_metrics, carry0):
+        args = (cfg, kn, A, b, seed, bound, target)
+        kw = dict(carry0=carry0, caches=caches)
+        if with_metrics:
+            return evolve_mod.evolve_metrics(*args, **kw)
+        return evolve_mod.evolve_while(*args, **kw), None
+
+    chunks, bound = [], int(carry.iteration)
+    while bound < max_iterations:
+        bound = min(bound + every, max_iterations)
+        begin = int(carry.iteration)
+        carry, m = run(bound, collect_metrics, carry)
+        if m is not None:   # the rows of the iterations that ran
+            ran = int(carry.iteration) - begin
+            chunks.append(evolve_mod.map_metrics(lambda x: x[:ran], m))
+        if bound >= max_iterations or bool(evolve_mod._stop_condition(
+                cfg, target, carry)):
+            break   # the caller saves the last carry
+        save(carry)
+    if not collect_metrics:
+        return carry, None
+    # then zero rows up to max_iterations, as one loop gives them
+    chunks.append(run(max_iterations, True, carry)[1])
+    return carry, evolve_mod.map_metrics(lambda *xs: torch.cat(xs), *chunks)
+
+
 def _metrics_dict(metrics) -> Optional[dict]:
     """Stacked metrics as numpy arrays by field name (``None`` stays)."""
     if metrics is None:
@@ -629,21 +651,42 @@ def _reopen_carry(cfg: SolverConfig, carry):
         stall_count=torch.zeros_like(carry.stall_count))
 
 
+def _mesh_model_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size(MODEL_AXIS)
+
+
+def _one_device(device, mesh):
+    """The device of a run without a model axis: the caller's, else a
+    mesh's own (``None``: the default card)."""
+    return device if device is not None or mesh is None else mesh.device
+
+
 def solve(A, b, tol: float = 1e-8, max_iterations: int = 100,
           num_candidates: Optional[int] = None, seed: int = 0,
           config: Optional[SolverConfig] = None,
           checkpoint_path: Optional[str] = None,
           resume_from: Optional[str] = None,
           checkpoint_every: Optional[int] = None,
-          device=None) -> SolutionReport:
+          device=None, mesh=None) -> SolutionReport:
     """Solve Ax = b on ``device`` (default: the card — a CUDA tensor's own,
     else ``cuda``; pass ``device="cpu"`` to run on the CPU).
     ``checkpoint_path``, ``resume_from``, ``checkpoint_every``: as in
-    :meth:`MausSolver.evolve`."""
+    :meth:`MausSolver.evolve`.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` with a model axis of size > 1. Every
+    rank calls ``solve`` with the same arguments (``parallel/launch.py``);
+    the population engine then runs with the shared factorization
+    column-sharded over the ranks (``dist_qr``), and refinement certifies
+    with kernel K1 on each rank's shard. Every rank returns the report."""
+    if _mesh_model_size(mesh) > 1:
+        return _solve_mesh(A, b, mesh, tol, max_iterations, num_candidates,
+                           seed, config, checkpoint_path=checkpoint_path,
+                           resume_from=resume_from,
+                           checkpoint_every=checkpoint_every)
     s = MausSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
-                   device=device)
+                   device=_one_device(device, mesh))
     return s.evolve(max_iterations, checkpoint_path=checkpoint_path,
                     resume_from=resume_from, checkpoint_every=checkpoint_every)
 
@@ -656,7 +699,7 @@ def eig(A, tol: float = 1e-8, max_iterations: int = 200,
         checkpoint_path: Optional[str] = None,
         resume_from: Optional[str] = None,
         checkpoint_every: Optional[int] = None,
-        device=None) -> SolutionReport:
+        device=None, mesh=None) -> SolutionReport:
     """Eigenpairs of a square A on ``device`` (default: the card, as for
     :func:`solve`). A general A runs against its shared Hessenberg form; a
     Hermitian A snaps to a shared eigh when dense and N ≤
@@ -664,12 +707,23 @@ def eig(A, tol: float = 1e-8, max_iterations: int = 200,
     ``target_solutions``: how many distinct pairs to search for (default N,
     clamped to the number of candidates). ``knowledge``: a precomputed
     :class:`ProblemKnowledge`, which skips the diagnosis. The checkpoint
-    arguments: as in :meth:`MausSolver.evolve`."""
+    arguments: as in :meth:`MausSolver.evolve`.
+
+    ``mesh`` (model axis > 1, every rank calling): the engine runs with A
+    and its Hessenberg form column-sharded, every shifted solve (Hermitian
+    operands too) through ``dist_solve_shifted``, then the distributed FP64
+    Newton finisher; ``knowledge`` is not used there."""
+    if _mesh_model_size(mesh) > 1:
+        return _eig_mesh(A, mesh, tol, max_iterations, num_candidates, seed,
+                         config, checkpoint_path=checkpoint_path,
+                         resume_from=resume_from,
+                         checkpoint_every=checkpoint_every,
+                         target_solutions=target_solutions)
     s = MausSolver(A, ProblemType.EIGENVALUE,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
                    target_solutions=target_solutions, knowledge=knowledge,
-                   device=device)
+                   device=_one_device(device, mesh))
     return s.evolve(max_iterations, checkpoint_path=checkpoint_path,
                     resume_from=resume_from, checkpoint_every=checkpoint_every)
 
@@ -682,18 +736,416 @@ def svd(A, tol: float = 1e-6, max_iterations: int = 300,
         checkpoint_path: Optional[str] = None,
         resume_from: Optional[str] = None,
         checkpoint_every: Optional[int] = None,
-        device=None) -> SolutionReport:
+        device=None, mesh=None) -> SolutionReport:
     """Singular triplets (σ, u, v) of an (M, N) operand A on ``device``
     (default: the card, as for :func:`solve`). ``target_solutions``: how
     many distinct triplets to search for (default the diagnosed effective
     rank, clamped to the number of candidates); the run re-derives the
     target from the converged σ spectrum and reports its last value.
     ``knowledge``: a precomputed :class:`ProblemKnowledge`, which skips the
-    diagnosis. The checkpoint arguments: as in :meth:`MausSolver.evolve`."""
+    diagnosis. The checkpoint arguments: as in :meth:`MausSolver.evolve`.
+
+    ``mesh`` (model axis > 1, every rank calling): the engine runs with A
+    column-sharded (N divisible by the model size), then the
+    factorization-free distributed Newton finisher."""
+    if _mesh_model_size(mesh) > 1:
+        return _svd_mesh(A, mesh, tol, max_iterations, num_candidates, seed,
+                         config, checkpoint_path=checkpoint_path,
+                         resume_from=resume_from,
+                         checkpoint_every=checkpoint_every,
+                         target_solutions=target_solutions)
     s = MausSolver(A, ProblemType.SVD,
                    initial_num_candidates=num_candidates,
                    global_convergence_tol=tol, config=config, seed=seed,
                    target_solutions=target_solutions, knowledge=knowledge,
-                   device=device)
+                   device=_one_device(device, mesh))
     return s.evolve(max_iterations, checkpoint_path=checkpoint_path,
                     resume_from=resume_from, checkpoint_every=checkpoint_every)
+
+
+# ---------------------------------------------------------------------------
+# The mesh paths: the same engine over a column-sharded operand
+# ---------------------------------------------------------------------------
+
+def _check_divisible(kind: str, n: int, mesh) -> None:
+    m = _mesh_model_size(mesh)
+    if n % m != 0:
+        raise ValueError(f"distributed {kind} needs N divisible by the model "
+                         f"axis: N={n}, model={m}")
+
+
+def _mesh_config(config: Optional[SolverConfig], problem_type: ProblemType,
+                 **defaults) -> SolverConfig:
+    """The caller's config for ``problem_type``, else the mesh defaults."""
+    if config is None:
+        return SolverConfig(problem_type=problem_type, **defaults)
+    return dataclasses.replace(config, problem_type=problem_type)
+
+
+def mesh_convergence_floor(cdtype: torch.dtype) -> float:
+    """In-loop floor of the mesh linear path: 50·ε of the working dtype,
+    the JAX mesh rule (``maus_tpu/solver/api.py:1121``). It is not the
+    single-device :func:`convergence_floor`: for a complex64 κ = 1e6 system
+    that one is 2κ·ε₃₂ ≈ 0.24 and this one 6e-6, below what the working
+    dtype reaches, so the mesh engine runs to its stall limit before
+    refinement takes the best candidate on (ROADMAP Queue 3)."""
+    return 50 * float(torch.finfo(cdtype.to_real()).eps)
+
+
+def _spectral_floor(cdtype: torch.dtype, n: int) -> float:
+    """In-loop floor of the mesh eig and SVD paths, relative to the operand
+    scale: min(max(50, √N)·ε, 1e-2) of the working dtype (the JAX mesh
+    rule; it is the port's ``eig_convergence_floor`` for complex64, and
+    not 0 for complex128)."""
+    eps_c = float(torch.finfo(cdtype.to_real()).eps)
+    return float(min(max(50.0, np.sqrt(n)) * eps_c, 1e-2))
+
+
+def _load_mesh_carry(cfg, kn, A_op, seed, path, reopen):
+    """The mesh carry saved at ``path``, loaded against a template whose
+    sharded factors are meta tensors of this rank's shard shapes. With
+    ``reopen``, :func:`_reopen_carry` and the carried factorization rebuilt
+    against the current operand at the carried Ψ."""
+    template = evolve_mod.init_carry(cfg, kn, A_op, seed, template=True)
+    carry = load_state(path, template, device=A_op.device, mesh=A_op.mesh)
+    if reopen:
+        carry = _reopen_carry(cfg, carry)
+        if carry.fac is not None:
+            carry.fac = evolve_mod._refactor(kn, A_op, carry.psi_cached)
+    return carry
+
+
+def _mesh_hosted_drive(cfg, kn, A_op, b, seed, max_iterations, target,
+                       caches=None, checkpoint_path=None,
+                       checkpoint_every=None, resume_from=None, reopen=False,
+                       collect_metrics=False):
+    """The mesh counterpart of :meth:`MausSolver.evolve`'s loop: the same
+    chunks (:func:`_drive_chunked`) and resume protocol, the carry saved
+    sharded (``utils/checkpoint``). ``max_iterations`` bounds the total
+    iteration count; ``A_op`` is the column-sharded operand, which carries
+    the mesh. Returns ``(carry, metrics, engine seconds)``."""
+    if checkpoint_every is not None:
+        if checkpoint_path is None:
+            raise ValueError("checkpoint_every requires checkpoint_path")
+        if int(checkpoint_every) < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got "
+                             f"{checkpoint_every}")
+    mesh = A_op.mesh
+    t0 = time.perf_counter()
+    carry = _load_mesh_carry(cfg, kn, A_op, seed, resume_from, reopen) \
+        if resume_from is not None else evolve_mod.init_carry(cfg, kn, A_op, seed)
+    every = max(max_iterations, 1) if checkpoint_every is None \
+        else int(checkpoint_every)
+    carry, metrics = _drive_chunked(
+        cfg, kn, A_op, b, seed, target, max_iterations, collect_metrics, every,
+        carry, caches, lambda c: save_state(checkpoint_path, c, mesh=mesh))
+    if checkpoint_path is not None:
+        save_state(checkpoint_path, carry, mesh=mesh)
+    _sync(A_op.device)
+    return carry, metrics, time.perf_counter() - t0
+
+
+def _shapes(**tensors) -> dict:
+    """The shapes of a mesh run's shards, by name, for its report."""
+    return {k: tuple(t.shape) for k, t in tensors.items()}
+
+
+def _leaders(cfg, carry, target):
+    """Slots of the distinct leaders, best residual first, and the host
+    copy of the residuals."""
+    diag = strat_mod.compute_diagnostics(cfg, carry.pop, carry.strat, target)
+    leader = diag.distinct_leader.cpu().numpy()
+    residual = carry.pop.residual.cpu().numpy().astype(np.float64)
+    order = np.argsort(np.where(np.isfinite(residual), residual, np.inf))
+    return [int(k) for k in order if leader[k]], residual
+
+
+def _solve_mesh(A, b, mesh, tol, max_iterations, num_candidates, seed,
+                config, checkpoint_path=None, resume_from=None,
+                checkpoint_every=None, reopen=False, staged=None,
+                collect_metrics=False) -> SolutionReport:
+    """Linear solve over the mesh: the engine with the column-sharded
+    ``dist_qr`` factorization, then distributed refinement of the best
+    candidate against the user's system (K1 on each rank's shard).
+    ``staged``: ``(A_loc, b_work, A_true_loc, b_true)`` from
+    ``dist_qr.stage_operands`` (``MeshSolver`` stages once)."""
+    n = A.shape[0] if staged is None else staged[0].shape[0]
+    _check_divisible("solve", n, mesh)
+    with full_precision():
+        if staged is None:
+            staged = stage_operands(mesh, A, b,
+                                    dtype=config.dtype if config else None)
+        A_loc, b_work, A_true, b_true = staged
+        block = panel_block(A_loc.shape[1])
+        cdtype = A_loc.dtype
+        cfg = _mesh_config(config, ProblemType.SOLVE_LINEAR_SYSTEM,
+                           num_candidates=num_candidates or 16, tol=tol,
+                           dtype=cdtype,
+                           convergence_floor=mesh_convergence_floor(cdtype),
+                           refine=True)
+        kn = ProblemKnowledge(shape=(n, n))
+        A_op = place_operands(mesh, A_loc)
+        carry, metrics, engine_s = _mesh_hosted_drive(
+            cfg, kn, A_op, b_work, seed, max_iterations, 1,
+            checkpoint_path=checkpoint_path,
+            resume_from=resume_from, checkpoint_every=checkpoint_every,
+            reopen=reopen, collect_metrics=collect_metrics)
+        t0 = time.perf_counter()
+        res = carry.pop.residual
+        x0 = carry.pop.v[int(torch.argmin(torch.where(
+            torch.isfinite(res), res, torch.full_like(res, float("inf")))))]
+        x, rel = refine_distributed(mesh, carry.fac, A_true, b_true, x0, block,
+                                    cfg.max_refine_steps, tol * 0.3)
+        x = x.cpu().numpy()
+        finish_s = time.perf_counter() - t0
+    return SolutionReport(
+        problem_type=ProblemType.SOLVE_LINEAR_SYSTEM, solutions=[(x,)],
+        residuals=[rel], iterations=int(carry.iteration),
+        num_distinct=1 if rel <= tol else 0, target_solutions=1,
+        landscape_energy=float(carry.strat.landscape_energy), knowledge=kn,
+        timings=dict(setup_s=0.0, engine_s=engine_s, finish_s=finish_s),
+        metrics=_metrics_dict(metrics),
+        shards=_shapes(A=A_op.local, A_true=A_true, Q=carry.fac.q, R=carry.fac.r))
+
+
+def _eig_mesh(A, mesh, tol, max_iterations, num_candidates, seed, config,
+              checkpoint_path=None, resume_from=None, checkpoint_every=None,
+              reopen=False, staged=None, hess=None, collect_metrics=False,
+              target_solutions=None) -> SolutionReport:
+    """eig over the mesh: the engine with every shifted solve through the
+    column-sharded Hessenberg form (built once here unless ``hess`` is
+    given), then the distributed Newton finisher on the distinct leaders.
+    ``staged``: ``(A_loc, A64_loc)`` from ``dist_refine.stage_spectral``."""
+    n = A.shape[0] if staged is None else staged[0].shape[0]
+    _check_divisible("eig", n, mesh)
+    with full_precision():
+        if staged is None:
+            staged = stage_spectral(mesh, A, dtype=config.dtype if config else None)
+        A_loc, A64 = staged
+        if A_loc.shape[0] != n or A_loc.shape[1] * _mesh_model_size(mesh) != n:
+            raise ValueError(f"EIGENVALUE requires a square matrix, got "
+                             f"({A_loc.shape[0]}, "
+                             f"{A_loc.shape[1] * _mesh_model_size(mesh)})")
+        cdtype = A_loc.dtype
+        cfg = _mesh_config(config, ProblemType.EIGENVALUE,
+                           num_candidates=num_candidates or
+                           min(max(8, 2 * int(np.sqrt(n))), 32),
+                           tol=tol, dtype=cdtype,
+                           convergence_floor=_spectral_floor(cdtype, n))
+        kn = ProblemKnowledge(shape=(n, n))
+        target = min(n, cfg.num_candidates, target_solutions or n)
+        t0 = time.perf_counter()
+        if hess is None:
+            hess = dist_hessenberg(mesh, A_loc)
+        _sync(A_loc.device)
+        setup_s = time.perf_counter() - t0
+        A_op = place_operands(mesh, A_loc)
+        carry, metrics, engine_s = _mesh_hosted_drive(
+            cfg, kn, A_op, None, seed, max_iterations,
+            target, caches=evolve_mod.Caches(hess=hess),
+            checkpoint_path=checkpoint_path, resume_from=resume_from,
+            checkpoint_every=checkpoint_every, reopen=reopen,
+            collect_metrics=collect_metrics)
+        t0 = time.perf_counter()
+        pop = carry.pop
+        leader_ks, residual = _leaders(cfg, carry, target)
+        lam, v = pop.lam.cpu().numpy(), pop.v.cpu().numpy()
+        solutions, residuals = [], []
+        refined = None
+        if leader_ks and cfg.refine:
+            idx = torch.tensor(leader_ks, device=pop.v.device)
+            refined = [t.cpu().numpy() for t in dist_refine_eigenpairs(
+                mesh, hess, A64, pop.lam[idx], pop.v[idx], steps=5)]
+        for j, k in enumerate(leader_ks):
+            if refined is not None and np.isfinite(refined[2][j]) and \
+                    refined[2][j] < residual[k]:
+                solutions.append((complex(refined[0][j]), refined[1][j]))
+                residuals.append(float(refined[2][j]))
+            else:
+                solutions.append((complex(lam[k]), v[k].astype(np.complex128)))
+                residuals.append(float(residual[k]))
+        finish_s = time.perf_counter() - t0
+    solutions, residuals = _final_dedup(cfg, solutions, residuals)
+    return SolutionReport(
+        problem_type=ProblemType.EIGENVALUE, solutions=solutions,
+        residuals=residuals, iterations=int(carry.iteration),
+        num_distinct=len(solutions), target_solutions=target,
+        landscape_energy=float(carry.strat.landscape_energy), knowledge=kn,
+        timings=dict(setup_s=setup_s, engine_s=engine_s, finish_s=finish_s),
+        metrics=_metrics_dict(metrics),
+        shards=_shapes(A=A_op.local, A64=A64, H=hess.h, Q=hess.q))
+
+
+def _svd_mesh(A, mesh, tol, max_iterations, num_candidates, seed, config,
+              checkpoint_path=None, resume_from=None, checkpoint_every=None,
+              reopen=False, staged=None, collect_metrics=False,
+              target_solutions=None) -> SolutionReport:
+    """SVD over the mesh: the engine with A column-sharded (the block
+    round's products through the sharded operand), then the
+    factorization-free distributed Newton finisher on the distinct
+    leaders."""
+    if staged is None:
+        mr, n = A.shape[0], A.shape[1]
+    else:
+        mr, n = staged[0].shape[0], staged[0].shape[1] * _mesh_model_size(mesh)
+    _check_divisible("svd", n, mesh)
+    with full_precision():
+        if staged is None:
+            staged = stage_spectral(mesh, A, dtype=config.dtype if config else None)
+        A_loc, A64 = staged
+        cdtype = A_loc.dtype
+        cfg = _mesh_config(config, ProblemType.SVD,
+                           num_candidates=num_candidates or
+                           min(max(4, min(mr, n) // 2), 16),
+                           tol=tol, dtype=cdtype,
+                           convergence_floor=_spectral_floor(cdtype, max(mr, n)))
+        if target_solutions is not None:
+            cfg = dataclasses.replace(cfg, target_num_solutions=int(target_solutions))
+        kn = ProblemKnowledge(shape=(mr, n))
+        target0 = min(default_target_solutions(cfg, kn), cfg.num_candidates)
+        A_op = place_operands(mesh, A_loc)
+        carry, metrics, engine_s = _mesh_hosted_drive(
+            cfg, kn, A_op, None, seed, max_iterations,
+            target0, checkpoint_path=checkpoint_path,
+            resume_from=resume_from, checkpoint_every=checkpoint_every,
+            reopen=reopen, collect_metrics=collect_metrics)
+        t0 = time.perf_counter()
+        pop = carry.pop
+        # the run's last view of the effective rank supersedes the first
+        target = min(int(carry.strat.target_dynamic), target0)
+        leader_ks, residual = _leaders(cfg, carry, target)
+        sig = pop.lam.real.cpu().numpy()
+        u, v = pop.u.cpu().numpy(), pop.v.cpu().numpy()
+        solutions, residuals = [], []
+        refined = None
+        if leader_ks and cfg.refine:
+            idx = torch.tensor(leader_ks, device=pop.v.device)
+            refined = [t.cpu().numpy() for t in dist_refine_svd(
+                mesh, A_loc, A64, pop.lam[idx], pop.u[idx], pop.v[idx],
+                steps=5)]
+        for j, k in enumerate(leader_ks):
+            if refined is not None and np.isfinite(refined[3][j]) and \
+                    refined[3][j] < residual[k]:
+                solutions.append((float(refined[0][j]), refined[1][j],
+                                  refined[2][j]))
+                residuals.append(float(refined[3][j]))
+            else:
+                solutions.append((float(sig[k]), u[k].astype(np.complex128),
+                                  v[k].astype(np.complex128)))
+                residuals.append(float(residual[k]))
+        finish_s = time.perf_counter() - t0
+    solutions, residuals = _final_dedup(cfg, solutions, residuals)
+    return SolutionReport(
+        problem_type=ProblemType.SVD, solutions=solutions,
+        residuals=residuals, iterations=int(carry.iteration),
+        num_distinct=len(solutions), target_solutions=target,
+        landscape_energy=float(carry.strat.landscape_energy),
+        knowledge=ProblemKnowledge(shape=(mr, n), effective_rank=target),
+        timings=dict(setup_s=0.0, engine_s=engine_s, finish_s=finish_s),
+        metrics=_metrics_dict(metrics), shards=_shapes(A=A_op.local, A64=A64))
+
+
+class MeshSolver:
+    """Stateful entry point of the mesh paths, the :class:`MausSolver` surface
+    (``evolve`` with checkpoint/resume and metrics, ``update_problem``) for
+    operands column-sharded over a mesh's model axis. Every rank constructs
+    it and calls its methods with the same arguments. Operands are staged
+    once, as shards, and reused by every ``evolve``; an eigenproblem's
+    Hessenberg form is built on the first ``evolve`` and kept until the
+    matrix changes.
+
+    ``update_problem`` re-stages each changed operand from the user's data
+    (the working copy and the full-precision one refinement certifies
+    against). A resume of a checkpoint written before a swap reopens the
+    carry (``_reopen_carry``) so the population runs on against the new
+    system; a checkpoint written after the last swap resumes bit-exactly.
+    """
+
+    def __init__(self, matrix, problem_type: ProblemType, mesh,
+                 b_vector=None, initial_num_candidates: Optional[int] = None,
+                 global_convergence_tol: float = 1e-8,
+                 config: Optional[SolverConfig] = None, seed: int = 0):
+        self.problem_type = ProblemType(problem_type)
+        if _mesh_model_size(mesh) <= 1:
+            raise ValueError("MeshSolver needs a mesh with a 'model' axis "
+                             "of size > 1 (use MausSolver otherwise)")
+        if self.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM and \
+                b_vector is None:
+            raise ValueError("SOLVE_LINEAR_SYSTEM requires b_vector")
+        self.mesh = mesh
+        self.tol = float(global_convergence_tol)
+        self.num_candidates = initial_num_candidates
+        self.config = config
+        self.seed = seed
+        self._stA = self._stb = self._hess = None
+        # operand epoch: bumped by every real swap; a checkpoint remembers
+        # the epoch it was written under, so a resume reopens the carry iff
+        # the operand changed since
+        self._epoch = 0
+        self._ckpt_epochs: dict = {}
+        self.update_problem(matrix=matrix, b_vector=b_vector)
+        self._epoch = 0          # constructor staging is not a swap
+
+    def update_problem(self, matrix=None, b_vector=None) -> None:
+        """Swap operands between runs (the reference's scenario 1): each
+        changed operand is staged from the user's data as at construction;
+        an unchanged one keeps its shards. ``b_vector`` applies only to a
+        linear system (``ValueError`` otherwise)."""
+        if self.problem_type != ProblemType.SOLVE_LINEAR_SYSTEM and \
+                b_vector is not None:
+            raise ValueError("b_vector only applies to SOLVE_LINEAR_SYSTEM "
+                             "problems")
+        dtype = self.config.dtype if self.config is not None else None
+        changed = False
+        if self.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
+            if matrix is not None:
+                _check_divisible("solve", matrix.shape[0], self.mesh)
+                self._stA = stage_A(self.mesh, matrix, dtype)
+                changed = True
+            if b_vector is not None:
+                self._stb = stage_b(self.mesh, b_vector,
+                                    self._stA[0].shape[0], dtype)
+                changed = True
+        elif matrix is not None:
+            _check_divisible(self.problem_type.name.lower(), matrix.shape[-1],
+                             self.mesh)
+            self._stA = stage_spectral(self.mesh, matrix, dtype)
+            self._hess = None    # the cached reduction is of the old operand
+            changed = True
+        if changed:
+            self._epoch += 1
+
+    def evolve(self, max_iterations: int = 100, collect_metrics: bool = False,
+               checkpoint_path: Optional[str] = None,
+               resume_from: Optional[str] = None,
+               checkpoint_every: Optional[int] = None,
+               reopen: Optional[bool] = None) -> SolutionReport:
+        """Run the mesh engine and the distributed finishers; the arguments
+        of :meth:`MausSolver.evolve`. ``reopen=None`` decides from the
+        operand epochs: a resumed checkpoint reopens iff ``update_problem``
+        changed an operand since it was written (a checkpoint of another
+        solver, whose epoch is unknown, reopens iff any swap happened)."""
+        if reopen is None:
+            saved = self._ckpt_epochs.get(resume_from)
+            reopen = resume_from is not None and (
+                self._epoch > 0 if saved is None else saved != self._epoch)
+        kw = dict(checkpoint_path=checkpoint_path, resume_from=resume_from,
+                  checkpoint_every=checkpoint_every,
+                  collect_metrics=collect_metrics, reopen=reopen)
+        common = (self.mesh, self.tol, max_iterations, self.num_candidates,
+                  self.seed, self.config)
+        if self.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
+            (A_loc, A_true), (b_work, b_true) = self._stA, self._stb
+            rep = _solve_mesh(None, None, *common,
+                              staged=(A_loc, b_work, A_true, b_true), **kw)
+        elif self.problem_type == ProblemType.EIGENVALUE:
+            if self._hess is None:
+                with full_precision():
+                    self._hess = dist_hessenberg(self.mesh, self._stA[0])
+            rep = _eig_mesh(None, *common, staged=self._stA, hess=self._hess,
+                            **kw)
+        else:
+            rep = _svd_mesh(None, *common, staged=self._stA, **kw)
+        if checkpoint_path is not None:
+            self._ckpt_epochs[checkpoint_path] = self._epoch
+        return rep

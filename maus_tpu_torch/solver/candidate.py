@@ -4,7 +4,11 @@ Counterpart of ``maus_tpu/solver/candidate.py`` (``init_population``,
 ``_adapt_and_classify``, ``step_linear``, ``step_eigen``, ``step_svd`` and
 helpers). One call advances all K candidates; solve success or failure,
 stuckness and convergence are masked tensor arithmetic on the
-:class:`~maus_tpu_torch.core.types.Population`.
+:class:`~maus_tpu_torch.core.types.Population`. The steps touch the
+operand only through ``parallel/placement``'s ``rows``, ``left``,
+``rows_conj``, ``fro`` and ``diagonal``: the plain expressions for a tensor,
+local products and collectives for a column-sharded operand (the mesh
+engine), where the JAX package relies on GSPMD.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from ..ops.batched_solve import batched_shifted_solve, psi_ladder, solve_any
 from ..ops.gmres import gmres_batched, jacobi_from_diag
 from ..ops.hessenberg import solve_shifted_via_hessenberg
 from ..ops.regularize import psi_magnitude, shift_diagonal
+from ..parallel.placement import diagonal, fro, left, rows, rows_conj
 
 # Eigen shift locking (step_eigen): a candidate keeps its carried (diverse)
 # shift until its eigenresidual drops below this fraction of the operand's
@@ -177,7 +182,7 @@ def _finite_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
-                pop: Population, strat: StrategyState
+                pop: Population, strat: StrategyState, direct_solve=None
                 ) -> tuple[Population, StepStats]:
     """One population step for Ax=b.
 
@@ -185,24 +190,26 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
     is computed once against the carried factorization (or, under the
     GMRES preference, by GMRES on the same Ψ-shifted system), and only the
     damped mixing ``x_k ← (1−α_k)x_k + α_k x̂`` plus the bookkeeping is
-    per-candidate work.
+    per-candidate work. ``direct_solve``: a ``(fac, b) → x̂`` in place of
+    ``solve_any`` (the mesh engine's ``dist_qr_solve`` on sharded factors).
     """
     bnorm = torch.clamp_min(torch.linalg.vector_norm(b),
                             torch.finfo(cfg.real_dtype).tiny)
 
     if int(strat.solver_pref) == SolverPreference.DIRECT:
-        x_hat = solve_any(fac, b)
+        x_hat = solve_any(fac, b) if direct_solve is None \
+            else direct_solve(fac, b)
     else:
         # GMRES solves the same Ψ-regularized system the factorization would
         N = A.shape[0]
-        anorm = (torch.linalg.vector_norm(A) / torch.sqrt(
+        anorm = (fro(A) / torch.sqrt(
             torch.tensor(float(N), dtype=cfg.real_dtype, device=A.device))
                  ).to(torch.float32)
         psi = psi_magnitude(cfg.psi_base * anorm, strat.psi_aggression,
                             strat.frustration, 0.0)
         d = shift_diagonal(N, psi, cfg.dtype)
-        diag = torch.diagonal(A) + d
-        res = gmres_batched(lambda X: X @ A.T + d[None, :] * X, b[None, :],
+        diag = diagonal(A) + d
+        res = gmres_batched(lambda X: rows(A, X) + d[None, :] * X, b[None, :],
                             precond_diag=jacobi_from_diag(diag)[None, :],
                             tol=cfg.tol, restart=min(32, N), max_restarts=8)
         x_hat = res.x[0]
@@ -213,7 +220,7 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
     v_new = (1.0 - alpha_c) * pop.v + alpha_c * x_hat[None, :]
     v_new = torch.where(solve_ok[:, None], v_new, pop.v)
 
-    resid = torch.linalg.vector_norm(v_new @ A.T - b[None, :], dim=-1) / bnorm
+    resid = torch.linalg.vector_norm(rows(A, v_new) - b[None, :], dim=-1) / bnorm
     frozen = _frozen(pop)
     # the linear path escalates at population level: the shared
     # factorization's rung (strategy frustration) is each candidate's depth
@@ -233,7 +240,7 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
 
 
 def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
-               strat: StrategyState, hess_cache=None
+               strat: StrategyState, hess_cache=None, dist_solve=None
                ) -> tuple[Population, StepStats]:
     """One population step for Ax = λx: per-candidate shift, then a batched
     regularized shifted solve ``(A − λ_k I + Ψ_k) w_k = v_k``.
@@ -243,15 +250,19 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     K2; without it, one LU per candidate. Under the GMRES preference the
     step is a Jacobi–Davidson correction instead. A candidate keeps its
     carried (diverse) shift until its eigenresidual drops below
-    ``_SHIFT_LOCK_FRAC``·‖A‖_F/√N, then switches to the Rayleigh quotient."""
+    ``_SHIFT_LOCK_FRAC``·‖A‖_F/√N, then switches to the Rayleigh quotient.
+    ``dist_solve``: a ``(λ, B, ψ) → W`` shifted solve in place of the
+    Hessenberg one (the mesh engine's ``dist_solve_shifted`` against the
+    column-sharded Hessenberg form)."""
     N = A.shape[0]
     K = pop.capacity
     rdt = cfg.real_dtype
-    anorm = (torch.linalg.vector_norm(A) / torch.sqrt(torch.tensor(
-        float(N), dtype=A.real.dtype, device=A.device))).to(torch.float32)
+    fro_a = fro(A)
+    anorm = (fro_a / torch.sqrt(torch.tensor(
+        float(N), dtype=fro_a.dtype, device=A.device))).to(torch.float32)
     psi_scaled = cfg.psi_base * anorm * 1e6   # ≈ ε²·‖A‖ for complex64
 
-    Av = pop.v @ A.T
+    Av = rows(A, pop.v)
     vv = torch.sum(pop.v.conj() * pop.v, dim=-1)
     rq = torch.where(vv.abs() > 1e-12,
                      torch.sum(pop.v.conj() * Av, dim=-1) / vv, pop.lam)
@@ -259,11 +270,14 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     lam = torch.where(aligned, rq, pop.lam)
 
     if int(strat.solver_pref) == SolverPreference.DIRECT:
-        if hess_cache is not None:
+        if hess_cache is not None or dist_solve is not None:
+            shifted = dist_solve or (lambda l_, B_, p_: solve_shifted_via_hessenberg(
+                hess_cache, l_, B_, p_))
+
             def solve_at(attempt_k):
                 psi = psi_magnitude(psi_scaled, strat.psi_aggression,
                                     attempt_k, pop.stuck)
-                return solve_shifted_via_hessenberg(hess_cache, lam, pop.v, psi)
+                return shifted(lam, pop.v, psi)
 
             W, attempts = psi_ladder(solve_at, K, cfg.max_psi_attempts,
                                      device=A.device)
@@ -284,9 +298,9 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
 
         def matvec(X):
             Xp = cproj(X)
-            return cproj(Xp @ A.T - lam[:, None] * Xp)
+            return cproj(rows(A, Xp) - lam[:, None] * Xp)
 
-        diag = torch.diagonal(A)[None, :] - lam[:, None]
+        diag = diagonal(A)[None, :] - lam[:, None]
         res = gmres_batched(matvec, -cproj(r), x0=torch.zeros_like(vk),
                             precond_diag=jacobi_from_diag(diag), tol=1e-2,
                             restart=min(32, N), max_restarts=2)
@@ -319,7 +333,7 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     v_new = torch.where(solve_ok[:, None], v_new, pop.v)
 
     # Rayleigh quotient and residual against the operand
-    Av_new = v_new @ A.T
+    Av_new = rows(A, v_new)
     lam_new = torch.sum(v_new.conj() * Av_new, dim=-1)
     resid = torch.linalg.vector_norm(Av_new - lam_new[:, None] * v_new, dim=-1)
 
@@ -381,16 +395,16 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
         reseeded = ~_finite_rows(pop.v) | \
             (torch.linalg.vector_norm(pop.v, dim=-1) < 1e-12)
         V = pop.v
-        rows = torch.nonzero(reseeded).flatten().tolist()
-        if rows:
+        slots = torch.nonzero(reseeded).flatten().tolist()
+        if slots:
             V = V.clone()
-            V[rows] = rng.normal_rows(pop.keys, rows, N, cfg.dtype, A.device,
+            V[slots] = rng.normal_rows(pop.keys, slots, N, cfg.dtype, A.device,
                                       stream=_RESEED)
         pop = dataclasses.replace(pop, keys=rng.advance(pop.keys))
 
         # one block round: span{A·V} → Qu; project; QR; small SVD → Ritz
-        Qu, _ = torch.linalg.qr((V @ A.T).T)                    # (M, r)
-        Z = Qu.mH @ A                                           # (r, N)
+        Qu, _ = torch.linalg.qr(rows(A, V).T)                   # (M, r)
+        Z = left(A, Qu.mH)                                      # (r, N)
         Qv, Rz = torch.linalg.qr(Z.mH)                          # (N, r), (r, r)
         Us, _, Vsh = torch.linalg.svd(Rz.mH)
         U_ritz = Qu @ Us                                        # (M, r)
@@ -411,7 +425,7 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
         u_new = u_mix / torch.clamp_min(
             torch.linalg.vector_norm(u_mix, dim=-1, keepdim=True), tiny)
         # σ of the mixed triplet: the phase-absorbed Rayleigh quotient uᴴAv
-        Avm = v_new @ A.T                                       # (K, M)
+        Avm = rows(A, v_new)                                    # (K, M)
         rq = torch.sum(u_new.conj() * Avm, dim=-1)
         rq_ph = torch.where(rq.abs() > 1e-30, rq / rq.abs(), torch.ones_like(rq))
         u_new = u_new * rq_ph[:, None]          # uᴴAv real ≥ 0 ⇒ σ = |rq|
@@ -421,10 +435,10 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     else:
         # the reference's per-candidate alternating power iteration;
         # (Aᴴu)[n] = Σ_m conj(A[m, n]) u[m], a product with conj(A)
-        Av = pop.v @ A.T                                        # (K, M)
+        Av = rows(A, pop.v)                                     # (K, M)
         s_u = torch.linalg.vector_norm(Av, dim=-1)
         u_new = Av / torch.clamp_min(s_u, tiny)[:, None]
-        AHu = u_new @ A.conj()                                  # (K, N)
+        AHu = rows_conj(A, u_new)                               # (K, N)
         s_v = torch.linalg.vector_norm(AHu, dim=-1)
         v_new = AHu / torch.clamp_min(s_v, tiny)[:, None]
         sigma = torch.maximum(s_u, s_v).to(rdt)
@@ -432,16 +446,17 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
         reseeded = torch.zeros_like(solve_ok)
 
     # zero-singular-value detection, relative to the operand's scale
-    a_scale = (torch.linalg.vector_norm(A) / torch.sqrt(torch.tensor(
-        float(min(A.shape)), dtype=A.real.dtype, device=A.device))).to(rdt)
+    fro_a = fro(A)
+    a_scale = (fro_a / torch.sqrt(torch.tensor(
+        float(min(A.shape)), dtype=fro_a.dtype, device=A.device))).to(rdt)
     zero_sv = s_u < 1e-8 * torch.clamp_min(a_scale, tiny)
     sigma = torch.where(zero_sv, torch.zeros_like(sigma), sigma)
 
     # two-sided residual ‖Av − σu‖ + ‖Aᴴu − σv‖; for a null vector ‖Av‖
     # alone (u is arbitrary for σ = 0)
     sig_c = sigma[:, None].to(cfg.dtype)
-    r1 = torch.linalg.vector_norm(v_new @ A.T - sig_c * u_new, dim=-1)
-    r2 = torch.linalg.vector_norm(u_new @ A.conj() - sig_c * v_new, dim=-1)
+    r1 = torch.linalg.vector_norm(rows(A, v_new) - sig_c * u_new, dim=-1)
+    r2 = torch.linalg.vector_norm(rows_conj(A, u_new) - sig_c * v_new, dim=-1)
     resid = torch.where(zero_sv, r1.to(rdt), (r1 + r2).to(rdt))
     solve_ok = solve_ok | (zero_sv & _finite_rows(v_new))
 

@@ -18,9 +18,18 @@ operand up to ``eigh_max_n`` (else per-candidate deflated Lanczos, which
 needs none); the SVD step needs neither (its block round is matrix
 products, two thin QRs and a small SVD).
 
+With A a column-sharded ``parallel/placement.ColumnSharded`` (its mesh a
+model axis over ``torch.distributed`` ranks) the loop is the mesh engine of
+the JAX package: the linear path's shared factorization is the
+column-sharded ``dist_qr`` and its solves ``dist_qr_solve``; every shifted
+solve of the eig path, Hermitian operands included, goes through the
+column-sharded Hessenberg form (``dist_solve_shifted``; a replicated eigh
+or Lanczos would defeat the sharding); the SVD step needs no routing. Every
+rank runs the same loop on the same replicated population.
+
 Not carried over: the host-refactor handoff and ``refactor_psi`` (an XLA:TPU
-scoped-VMEM workaround), the hoisted large-N Hessenberg program (a TPU fault
-workaround) and the mesh branches (a later slice).
+scoped-VMEM workaround) and the hoisted large-N Hessenberg program (a TPU
+fault workaround).
 """
 from __future__ import annotations
 
@@ -36,6 +45,9 @@ from ..ops.batched_solve import (CholFactors, QRFactors, _want_rinv,
                                  shared_factor_hpd, shared_factor_qr)
 from ..ops.hessenberg import HessCache, reduce_hessenberg_auto
 from ..ops.regularize import pow10, psi_magnitude
+from ..parallel.dist_hessenberg import dist_hessenberg, dist_solve_shifted
+from ..parallel.dist_qr import DistQR, dist_qr, dist_qr_solve, panel_block
+from ..parallel.placement import ColumnSharded, fro, trace
 from . import candidate as cand
 from . import hermitian as herm
 from . import population as popmgmt
@@ -94,7 +106,7 @@ def _metrics_row(cfg: SolverConfig, pop: Population, strat: StrategyState,
 class EvolveCarry:
     pop: Population
     strat: StrategyState
-    fac: object                  # QRFactors / CholFactors / LUFactors; None (eig)
+    fac: object                  # QRFactors / CholFactors / LUFactors / DistQR; None (eig)
     psi_cached: torch.Tensor     # f32 — Ψ the carried factorization was built with
     iteration: torch.Tensor      # i32
     best_residual: torch.Tensor  # f32 — previous iteration's best active residual
@@ -104,9 +116,9 @@ class EvolveCarry:
 def _anorm(A: torch.Tensor) -> torch.Tensor:
     """‖A‖_F/√N as float32, the scale Ψ is relative to."""
     n = A.shape[-1]
-    rdt = A.real.dtype
-    return (torch.linalg.vector_norm(A) / torch.sqrt(
-        torch.tensor(float(n), dtype=rdt, device=A.device))).to(torch.float32)
+    fro_a = fro(A)
+    return (fro_a / torch.sqrt(
+        torch.tensor(float(n), dtype=fro_a.dtype, device=A.device))).to(torch.float32)
 
 
 def _effective_psi(cfg: SolverConfig, strat: StrategyState,
@@ -122,6 +134,11 @@ def _effective_psi(cfg: SolverConfig, strat: StrategyState,
 
 
 def _refactor(knowledge: ProblemKnowledge, A: torch.Tensor, psi):
+    """The shared factorization of A + ψI: ``dist_qr`` of the shifted
+    shards for a column-sharded A (panels of ``panel_block`` of the shard
+    width), else a Cholesky or a QR on the device."""
+    if isinstance(A, ColumnSharded):
+        return dist_qr(A.mesh, A.shifted(psi), block=panel_block(A.local.shape[1]))
     return shared_factor_hpd(A, psi) if knowledge.is_positive_definite \
         else shared_factor_qr(A, psi)
 
@@ -134,10 +151,10 @@ def _spectral_moments(A: torch.Tensor):
     n = A.shape[-1]
     if A.shape[0] != n:
         return torch.zeros((), dtype=A.dtype, device=A.device), \
-            torch.linalg.vector_norm(A) / n ** 0.5
-    center = (torch.trace(A) / n).to(A.dtype)
+            fro(A) / n ** 0.5
+    center = (trace(A) / n).to(A.dtype)
     spread = torch.sqrt(torch.clamp_min(
-        torch.linalg.vector_norm(A) ** 2 / n - center.abs() ** 2, 1e-12))
+        fro(A) ** 2 / n - center.abs() ** 2, 1e-12))
     return center, spread
 
 
@@ -149,13 +166,18 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
                    with_metrics: bool = False):
     """Build the single-iteration function ``carry → carry``, or
     ``carry → (carry, Metrics row)`` with ``with_metrics``.
-    ``hess_cache``: the shared Hessenberg form of A (general eig path);
+    ``hess_cache``: the shared Hessenberg form of A (general eig path; a
+    ``DistHess`` for a column-sharded A, whose linear solves and eig solves
+    go through the column-sharded factors);
     ``eigh_cache``: the shared eigh of A (Hermitian eig path; without it a
     Hermitian operand takes the deflated-Lanczos step)."""
     anorm = _anorm(A)
     lam_center, lam_spread = _spectral_moments(A)
     lam_spread = lam_spread.to(torch.float32)
     linear = cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
+    mesh = A.mesh if isinstance(A, ColumnSharded) else None
+    direct_solve = None if mesh is None else (lambda f_, b_: dist_qr_solve(
+        mesh, f_, b_, block=panel_block(A.local.shape[1])))
 
     def iteration(carry: EvolveCarry) -> EvolveCarry:
         pop, strat = carry.pop, carry.strat
@@ -167,7 +189,12 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
             psi_eff = _effective_psi(cfg, strat, anorm).to(carry.psi_cached.dtype)
             if bool(psi_eff != carry.psi_cached):
                 fac = _refactor(knowledge, A, psi_eff)
-            pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat)
+            pop, stats = cand.step_linear(cfg, A, b, fac, pop, strat,
+                                          direct_solve=direct_solve)
+        elif cfg.problem_type == ProblemType.EIGENVALUE and mesh is not None:
+            pop, stats = cand.step_eigen(
+                cfg, A, pop, strat, dist_solve=lambda l_, B_, p_: dist_solve_shifted(
+                    mesh, hess_cache, l_, B_, p_))
         elif cfg.problem_type == ProblemType.EIGENVALUE and knowledge.is_hermitian:
             if eigh_cache is not None:
                 pop, stats = herm.step_hermitian(cfg, A, eigh_cache, pop, strat)
@@ -225,12 +252,17 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge,
 
 def _fac_template(knowledge: ProblemKnowledge, A: torch.Tensor):
     """The shared factorization's bundle with meta tensors of its shapes
-    and dtypes in place of the O(N³) factors."""
+    and dtypes in place of the O(N³) factors (this rank's (N, N/m) shards of
+    a ``DistQR`` for a column-sharded A)."""
     n = A.shape[-1]
 
     def meta():
         return torch.empty((n, n), dtype=A.dtype, device="meta")
 
+    if isinstance(A, ColumnSharded):
+        shard = A.local.shape
+        return DistQR(torch.empty(shard, dtype=A.dtype, device="meta"),
+                      torch.empty(shard, dtype=A.dtype, device="meta"))
     if knowledge.is_positive_definite:
         return CholFactors(meta())
     return QRFactors(meta(), meta(), meta() if _want_rinv(A) else None)
@@ -242,7 +274,8 @@ def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
     factorization at the first Ψ (an eigenproblem carries none). With
     ``template`` the factorization is not computed: its leaves are meta
     tensors of the right shapes, which is all a checkpoint's loader needs
-    (``utils/checkpoint.load_state``)."""
+    (``utils/checkpoint.load_state``). For a column-sharded A the
+    factorization is the ``dist_qr`` of its shifted shards."""
     device = A.device
     lam_center, lam_scale = _spectral_moments(A)
     pop = cand.init_population(cfg, seed, knowledge.shape, device=device,
@@ -250,8 +283,8 @@ def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
     strat = initial_strategy(cfg, knowledge, device=device)
     if cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
         psi0 = _effective_psi(cfg, strat, _anorm(A))
-        fac = _fac_template(knowledge, A) if template \
-            else _refactor(knowledge, A, psi0)
+        fac = _fac_template(knowledge, A) if template else \
+            _refactor(knowledge, A, psi0)
     else:
         fac, psi0 = None, torch.tensor(0.0, dtype=torch.float32, device=device)
     return EvolveCarry(
@@ -288,7 +321,11 @@ class Caches:
 def _setup_caches(cfg: SolverConfig, knowledge: ProblemKnowledge,
                   A: torch.Tensor) -> Caches:
     """Build the caches the problem's path uses (none for a linear system,
-    an SVD or the Lanczos branch)."""
+    an SVD or the Lanczos branch). For a column-sharded A an eigenproblem,
+    Hermitian or not, gets the column-sharded Hessenberg form."""
+    if isinstance(A, ColumnSharded):
+        return Caches(hess=dist_hessenberg(A.mesh, A.local)
+                      if cfg.problem_type == ProblemType.EIGENVALUE else None)
     return Caches(
         hess=reduce_hessenberg_auto(A) if _use_hessenberg(cfg, knowledge) else None,
         eigh=herm.eigh_setup(A) if _use_shared_eigh(cfg, knowledge) else None)

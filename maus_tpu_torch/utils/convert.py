@@ -6,7 +6,9 @@
 ``jax.tree.map(np.asarray, carry)``). It reads the leaves by attribute name
 only, so this module imports nothing of the JAX package. The tests use it to
 run both packages from identical state, since the two draw different random
-numbers from the same seed.
+numbers from the same seed. :func:`dist_qr_from_numpy` and
+:func:`dist_hess_from_numpy` do the same for the mesh factors: a JAX
+``DistQR``/``DistHess`` gathered to numpy becomes this rank's column shards.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 from ..core.types import Population, StrategyState
 from ..ops.batched_solve import CholFactors, LUFactors, QRFactors
 from ..ops.hessenberg import HessCache
+from ..parallel.dist_hessenberg import DistHess
+from ..parallel.dist_qr import DistQR
+from ..parallel.mesh import column_range
 
 
 def _t(a, device) -> torch.Tensor:
@@ -54,6 +59,24 @@ def hess_from_numpy(cache, device=None) -> HessCache:
     """The port's ``HessCache`` from the JAX package's (fields ``h``, ``q``,
     numpy leaves)."""
     return HessCache(h=_t(cache.h, device).contiguous(), q=_t(cache.q, device))
+
+
+def _shard(a, mesh, device) -> torch.Tensor:
+    a = np.asarray(a)
+    lo, hi = column_range(a.shape[1], mesh)
+    return _t(a[:, lo:hi], device if device is not None else mesh.device).contiguous()
+
+
+def dist_qr_from_numpy(fac, mesh, device=None) -> DistQR:
+    """This rank's shards of a JAX ``DistQR`` (fields ``q``, ``r``, whole
+    (N, N) numpy arrays)."""
+    return DistQR(q=_shard(fac.q, mesh, device), r=_shard(fac.r, mesh, device))
+
+
+def dist_hess_from_numpy(hess, mesh, device=None) -> DistHess:
+    """This rank's shards of a JAX ``DistHess`` (fields ``h``, ``q``, whole
+    (N, N) numpy arrays)."""
+    return DistHess(h=_shard(hess.h, mesh, device), q=_shard(hess.q, mesh, device))
 
 
 def eigh_from_numpy(cache, device=None):

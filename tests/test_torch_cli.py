@@ -55,22 +55,39 @@ def test_solve_exit_code_follows_convergence(capsys):
 
 
 def test_parser_has_only_the_ported_subcommands(monkeypatch):
-    """``age`` and the checkpoint flags are ported; ``bench`` (the port's
-    benchmark) and the mesh flags are not."""
-    for argv in (["bench"], ["eig", "--mesh-model", "2"],
-                 ["--cpu-devices", "2", "scenarios"]):
+    """``age``, the checkpoint flags and the mesh flags (``--mesh-model``,
+    ``--cpu-devices``, ``--backend``) are ported; ``bench`` (the port's
+    benchmark) is not. ``--cpu-devices`` needs ``--cpu`` and runs gloo
+    ranks, so it refuses ``--backend nccl``."""
+    for argv in (["bench"], ["--cpu-devices", "2", "scenarios"],
+                 ["--cpu", "--cpu-devices", "2", "--backend", "nccl", "solve"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
     parsed = []
-    for name in ("cmd_age", "cmd_solve"):
+    for name in ("cmd_age", "cmd_solve", "cmd_eig"):
         monkeypatch.setattr(cli, name, lambda args: parsed.append(args) or 0)
     assert cli.main(["age", "--cycles", "2", "--cands", "4", "--seed", "3",
                      "--islands", "2", "--json"]) == 0
     assert cli.main(["solve", "--checkpoint", "x", "--checkpoint-every", "2",
                      "--resume-from", "y"]) == 0
-    age, solve = parsed
+    assert cli.main(["--cpu", "--cpu-devices", "4", "eig", "--mesh-model",
+                     "2"]) == 0
+    assert cli.main(["--backend", "gloo", "eig", "--mesh-model", "2"]) == 0
+    age, solve, eig_cpu, eig_card = parsed
     assert (age.cycles, age.cands, age.seed, age.islands, age.json) == (2, 4, 3, 2, True)
     assert (solve.checkpoint, solve.checkpoint_every, solve.resume_from) == ("x", 2, "y")
+    assert (eig_cpu.cpu_devices, eig_cpu.mesh_model, eig_cpu.backend,
+            eig_cpu.device) == (4, 2, "gloo", "cpu")
+    assert (eig_card.mesh_model, eig_card.backend, eig_card.device) == \
+        (2, "gloo", None)
+
+
+def test_cpu_mesh_run_names_its_backend():
+    """``--cpu --mesh-model`` with no backend named is refused by the
+    library's rule (NCCL needs CUDA cards), before any rank starts; the CLI
+    does not pick gloo for the caller."""
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        cli.main(["--cpu", "solve", "--n", "8", "--mesh-model", "2"])
 
 
 def test_new_modules_import_without_jax():

@@ -27,6 +27,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import maus_tpu_torch.utils.truth, maus_tpu_torch.utils.checkpoint\n"
         "import maus_tpu_torch.utils.metrics, maus_tpu_torch.age.viz\n"
         "import maus_tpu_torch.age, maus_tpu_torch.cli\n"
+        "import maus_tpu_torch.parallel.launch, maus_tpu_torch.parallel.dist_svd\n"
+        "import maus_tpu_torch.parallel.dist_refine, maus_tpu_torch.utils.comm_budget\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'maus_tpu.')) or m == 'maus_tpu')\n"
         "assert not bad, bad\n"
@@ -37,8 +39,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str(sorted(
-        ["MausSolver", "ProblemKnowledge", "ProblemType", "SolutionReport",
-         "SolverConfig", "eig", "solve", "svd"]))
+        ["MausSolver", "MeshSolver", "ProblemKnowledge", "ProblemType",
+         "SolutionReport", "SolverConfig", "eig", "solve", "svd"]))
 
 
 def test_package_sources_never_import_jax():
