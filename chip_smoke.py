@@ -137,10 +137,28 @@ Phases, each printing its own lines:
      path reports holding (each (rows, N/2), checked; the linear paths' peak
      below the full unsharded operand and factors, checked), the
      collectives' counts and bytes by kind, and the backend, beside phase
-     3/6/9's single-device numbers.
+     3/6/9's single-device numbers;
+ 16. the candidate axis over replica ranks, the JAX package's entry
+     (init_carry, place_population, evolve_while from that carry), each
+     rank stepping only its K/2 slots: on a (2, 1) mesh of two ranks
+     sharing the card over gloo, phase 6's general eig (K2 launched on each
+     rank at (16, 4096) only, and held against its plain version on the
+     inputs the rank's engine handed it), phase 10's Hermitian eig
+     (Lanczos), phase 11's (shared eigh) and phase 9's SVD; on a (2, 2)
+     mesh of four ranks, phase 3's system with A column-sharded over model,
+     in phase 15's solve(mesh=) iterations, certified ≤ 1e-8 by
+     refine_distributed (K1 on each rank's (4096, 2048) shard) and by an
+     independent FP64 residual. Each placed run is held to the unplaced run
+     of the same seed in the same phase (one device, or the model group's
+     (1, 2) run): the same iterations and distinct count, every leader's λ
+     (σ) within the two runs' engine residuals. Per rank: wall and engine
+     seconds, K2/K1 launches, peak memory rise, replica-axis collectives
+     (at most 2 an iteration, none as large as the operand) and their
+     bytes.
 On every solver path K3 launches once for each trailing update of the
 path's LUs, and PR 3's CUDA-core body never (checked).
-Then a JSON line with the kernel table, and as the last line
+Then a JSON line with the kernel table (K2 also at phase 16's (16, 4096)),
+and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises, so the script exits
 non-zero and prints no result line; so does a machine without CUDA.
 """
@@ -208,6 +226,9 @@ MESH_EIG_N = EIG_N
 MESH_HESS_K = 32
 MESH_ISLANDS, MESH_ISLAND_CYCLES = 4, 2
 MESH_CLI_N = 1024
+# the candidate axis over replica ranks (phase 16): a (2, 1) mesh of two
+# ranks sharing the card over gloo, then a (2, 2) mesh of four
+REPLICA_RANKS = 2
 # KAIROSAGE (phase 14): BASELINE.md row 10's workload, 5 cycles of 20
 # candidates, and a stage-III batch of random tapes
 AGE_CYCLES = 5
@@ -1125,7 +1146,8 @@ def _phase15_islands(mesh):
 def phase15(single):
     """The mesh paths on the card: two ranks sharing it over gloo, launched
     by parallel/launch.py after phase 1 built the kernels. ``single``: phase
-    3/6/9's numbers, which the mesh runs are held against."""
+    3/6/9's numbers, which the mesh runs are held against. Returns the
+    iterations of the solve(mesh=) run."""
     import numpy as np
     import torch
 
@@ -1362,6 +1384,362 @@ def phase15(single):
     say(15, f"python -m maus_tpu_torch --backend gloo solve --n {MESH_CLI_N} "
             f"--mesh-model {MESH_RANKS} --check: exit code 0, {lines[0]}; "
             f"{lines[-1].strip()}; {time.perf_counter() - t0:.1f} s")
+    return res["solve"]["result"]["iterations"]
+
+
+def _replica_leaders(cfg, carry, target):
+    """[(λ or σ, engine residual)] of the distinct leaders."""
+    from maus_tpu_torch.solver import strategy
+
+    diag = strategy.compute_diagnostics(cfg, carry.pop, carry.strat, target)
+    lead = diag.distinct_leader.cpu().tolist()
+    lam = carry.pop.lam.cpu().tolist()
+    res = carry.pop.residual.cpu().tolist()
+    return [(lam[k], res[k]) for k in range(len(lead)) if lead[k]]
+
+
+def _replica_runs(mesh, runs):
+    """Phase 16's paths on each rank. For each ``(name, build, iterations,
+    follow)`` of ``runs``: the entry the JAX package uses (``init_carry``,
+    ``place_population``, then ``evolve_while`` from that carry), with the
+    K1, K2 and Lanczos counts, the collective counters and the peak memory
+    set to 0 just before it and read just after; then, on the ranks of
+    replica index 0, the unplaced run of the same seed on the same operand
+    (one device on a (2, 1) mesh, the model group's (1, 2) run on a (2, 2)
+    mesh). With ``follow`` the placed run must follow it: the same
+    iterations and distinct count, and each of the unplaced run's leaders'
+    λ (σ) within the two runs' engine residuals of one of the placed run's.
+    Without (the Lanczos step, whose trajectory the rounding of a product's
+    batch can change: ROADMAP, recorded divergences) it must reach the same
+    distinct count, and its leaders go back for a check against the
+    spectrum. ``build()`` gives ``(cfg, knowledge, operand, b, target,
+    caches, finish)``; ``finish`` (or None) runs on the placed carry.
+    Returns every rank's numbers (on every rank) and the inputs of the
+    first K2 call of each run."""
+    import torch
+    import torch.distributed as dist
+
+    from maus_tpu_torch.ops import hessenberg, lanczos
+    from maus_tpu_torch.ops.kernels import hess_solve, residual
+    from maus_tpu_torch.parallel import comm
+    from maus_tpu_torch.parallel.mesh import MODEL_AXIS, REPLICA_AXIS
+    from maus_tpu_torch.parallel.placement import place_population
+    from maus_tpu_torch.solver import evolve as ev
+
+    dev = mesh.device
+    calls = []
+    kernel = hessenberg.hess_solve
+
+    def recorded(H, shifts, B):
+        if not calls:
+            calls.append((H.clone(), shifts.clone(), B.clone()))
+        calls.append(tuple(B.shape))
+        return kernel(H, shifts, B)
+
+    hessenberg.hess_solve = recorded
+    out, k2_inputs = {}, {}
+    try:
+        for name, build, iters, follow in runs:
+            dist.barrier()
+            del calls[:]
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            residual.LAUNCHES = hess_solve.LAUNCHES = lanczos.CALLS = 0
+            t0 = time.perf_counter()
+            cfg, kn, op, rhs, target, caches, finish = build()
+            carry = ev.init_carry(cfg, kn, op, SEED)
+            carry.pop = place_population(mesh, carry.pop)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            with comm.counting() as counts:
+                carry = ev.evolve_while(cfg, kn, op, rhs, SEED, iters, target,
+                                        carry0=carry, caches=caches)
+                torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            fin = finish(carry) if finish is not None else None
+            torch.cuda.synchronize(dev)
+            row = dict(wall_s=time.perf_counter() - t0, setup_s=t1 - t0,
+                       engine_s=t2 - t1, K1=residual.LAUNCHES,
+                       K2=hess_solve.LAUNCHES, lanczos=lanczos.CALLS,
+                       k2_shapes=sorted(set(calls[1:])),
+                       peak_gib=(torch.cuda.max_memory_allocated(dev) - held) / 2**30,
+                       iterations=int(carry.iteration),
+                       num_distinct=int(carry.strat.num_distinct),
+                       slots=(carry.pop.slots.lo, carry.pop.slots.hi),
+                       **{f"{axis}_{key}": getattr(counts, f"axis_{key}")[axis]
+                          for axis in (REPLICA_AXIS, MODEL_AXIS)
+                          for key in ("calls", "bytes", "largest")},
+                       finish=fin)
+            if calls:
+                k2_inputs[name] = calls[0]
+            if mesh.index(REPLICA_AXIS) == 0:
+                t3 = time.perf_counter()
+                ref = ev.evolve_while(cfg, kn, op, rhs, SEED, iters, target,
+                                      carry0=ev.init_carry(cfg, kn, op, SEED),
+                                      caches=caches)
+                torch.cuda.synchronize(dev)
+                row.update(ref_engine_s=time.perf_counter() - t3,
+                           ref_iterations=int(ref.iteration),
+                           ref_num_distinct=int(ref.strat.num_distinct))
+                got = _replica_leaders(cfg, carry, target)
+                excess, dlam = -math.inf, 0.0
+                for lam, res in _replica_leaders(cfg, ref, target):
+                    near, near_res = min(got, key=lambda g: abs(g[0] - lam)) \
+                        if got else (math.inf, math.inf)
+                    dlam = max(dlam, abs(near - lam))
+                    excess = max(excess, abs(near - lam) - (res + near_res))
+                row.update(leader_dlam=dlam, leader_excess=excess, leaders=got)
+                same = row["num_distinct"] == row["ref_num_distinct"]
+                if follow:
+                    same = same and row["iterations"] == row["ref_iterations"] \
+                        and excess <= 0.0
+                if not same:
+                    raise AssertionError(
+                        f"{name}: placed run {row['iterations']} iterations, "
+                        f"{row['num_distinct']} distinct; unplaced "
+                        f"{row['ref_iterations']}, {row['ref_num_distinct']}; "
+                        f"leaders' λ apart by {dlam:.3e}, {excess:.3e} beyond "
+                        f"the engine residuals")
+                del ref
+            out[name] = row
+            del carry, caches, op
+            torch.cuda.empty_cache()
+    finally:
+        hessenberg.hess_solve = kernel
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every, k2_inputs
+
+
+def _phase16_spectral(mesh):
+    """The (2, 1) paths of phase 16: phase 6's general eig, phase 10's
+    (Lanczos) and 11's (shared eigh) Hermitian eigs and phase 9's SVD;
+    then K2 against its plain version on the inputs this rank's eig engine
+    handed it, timed on the first rank while the other waits."""
+    import torch
+    import torch.distributed as dist
+
+    from maus_tpu_torch import MausSolver, ProblemType
+    from maus_tpu_torch.ops.kernels import hess_solve
+    from maus_tpu_torch.solver import evolve as ev
+
+    dev = mesh.device
+
+    def spectral(make, ptype, k, tol):
+        def build():
+            s = MausSolver(make(), ptype, initial_num_candidates=k,
+                           global_convergence_tol=tol, target_solutions=SVD_TOP
+                           if ptype == ProblemType.SVD else EIG_TARGETS,
+                           seed=SEED, device=dev)
+            return (s.config, s.knowledge, s.A, None, s.target_solutions,
+                    ev._setup_caches(s.config, s.knowledge, s.A), None)
+        return build
+
+    EIG = ProblemType.EIGENVALUE
+    every, k2_inputs = _replica_runs(mesh, [
+        ("eig", spectral(lambda: eig_operand(EIG_N, SEED, dev), EIG,
+                         EIG_CANDIDATES, TOL), EIG_MAX_ITERATIONS, True),
+        ("hermitian_lanczos", spectral(lambda: hermitian_operand(EIG_N, SEED, dev),
+                                       EIG, EIG_CANDIDATES, TOL), EIG_MAX_ITERATIONS,
+         False),
+        ("hermitian_eigh", spectral(lambda: hermitian_operand(HERM_SMALL_N, SEED, dev),
+                                    EIG, EIG_CANDIDATES, TOL), EIG_MAX_ITERATIONS,
+         True),
+        ("svd", spectral(lambda: svd_operand(SVD_M, SVD_N, SVD_TOP, SEED, dev)[0],
+                         ProblemType.SVD, SVD_CANDIDATES, SVD_TOL),
+         SVD_MAX_ITERATIONS, True)])
+    H, shifts, B = k2_inputs["eig"]
+    k2 = check_k2(hess_solve.hess_solve, hess_solve.hess_solve_rq_plain, H,
+                  shifts, B, f"rank {mesh.rank}: K2 {tuple(B.shape)} complex64")
+    del k2["W"]
+    k2["shape"] = tuple(B.shape)
+    checks = [None] * dist.get_world_size()
+    dist.all_gather_object(checks, k2)
+    if mesh.rank == 0:
+        k2["ms"] = time_ms(lambda: hess_solve.hess_solve(H, shifts, B), reps=10)
+        k2["plain_ms"] = time_ms(
+            lambda: hess_solve.hess_solve_rq_plain(H, shifts, B), reps=2)
+        Hd = H[None] + torch.diag_embed(shifts[:, None].expand(*B.shape))
+        k2["library_ms"] = time_ms(lambda: torch.linalg.solve(Hd, B[..., None]),
+                                   reps=3)
+        del Hd
+    dist.barrier()
+    return every, checks, k2
+
+
+def _phase16_linear(mesh):
+    """The (2, 2) path of phase 16: phase 3's system with A column-sharded
+    over model and the population over replica, through the mesh linear
+    path's configuration (``solve(mesh=)``'s), certified by
+    ``refine_distributed`` (K1 on each rank's shard)."""
+    import torch
+
+    from maus_tpu_torch import ProblemKnowledge, ProblemType
+    from maus_tpu_torch.parallel.dist_qr import (panel_block, refine_distributed,
+                                                 stage_operands)
+    from maus_tpu_torch.parallel.placement import place_operands
+    from maus_tpu_torch.solver.api import _mesh_config, mesh_convergence_floor
+
+    dev = mesh.device
+
+    def build():
+        A, b = make_system(HEADLINE_N, COND, SEED, dev)
+        A_loc, b_work, A_true, b_true = stage_operands(mesh, A, b)
+        del A
+        cfg = _mesh_config(None, ProblemType.SOLVE_LINEAR_SYSTEM,
+                           num_candidates=CANDIDATES, tol=TOL, dtype=A_loc.dtype,
+                           convergence_floor=mesh_convergence_floor(A_loc.dtype),
+                           refine=True)
+
+        def finish(carry):
+            res = carry.pop.residual
+            x0 = carry.pop.v[int(torch.argmin(torch.where(
+                torch.isfinite(res), res, torch.full_like(res, math.inf))))]
+            x, rel = refine_distributed(mesh, carry.fac, A_true, b_true, x0,
+                                        panel_block(A_loc.shape[1]),
+                                        cfg.max_refine_steps, TOL * 0.3)
+            return dict(x=x.cpu().numpy(), rel=rel, shard=tuple(A_true.shape))
+
+        return (cfg, ProblemKnowledge(shape=(HEADLINE_N, HEADLINE_N)),
+                place_operands(mesh, A_loc), b_work, 1, None, finish)
+
+    return _replica_runs(mesh, [("linear", build, MAX_ITERATIONS, True)])[0]
+
+
+def phase16(mesh_iterations):
+    """The candidate axis over replica ranks on the card: two (2, 1) ranks
+    and then four (2, 2) ranks sharing it over gloo. ``mesh_iterations``:
+    phase 15's (1, 2) solve(mesh=) iterations, which the (2, 2) linear run
+    must equal. Returns K2's row for the kernel table."""
+    import numpy as np
+    import torch
+
+    from maus_tpu_torch.ops.kernels import residual
+    from maus_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    every, checks, k2 = launch.run(_phase16_spectral, REPLICA_RANKS,
+                                   backend=MESH_BACKEND, device="cuda:0",
+                                   replica=REPLICA_RANKS, model=1)
+    say(16, f"({REPLICA_RANKS}, 1) mesh, {REPLICA_RANKS} ranks sharing "
+            f"{torch.cuda.get_device_name(0)} over {MESH_BACKEND}: "
+            f"{time.perf_counter() - t0:.1f} s with the spawn")
+    k2_rows = EIG_CANDIDATES // REPLICA_RANKS
+
+    def lines(every, name, what):
+        for rank, rows in enumerate(every):
+            r = rows[name]
+            ref = f"; unplaced run (same seed) {r['ref_iterations']} iterations, " \
+                  f"{r['ref_num_distinct']} distinct in {r['ref_engine_s']:.3f} s " \
+                  f"engine, leaders' λ apart by ≤ {r['leader_dlam']:.3e}" \
+                if "ref_iterations" in r else ""
+            say(16, f"{what}, rank {rank} (slots [{r['slots'][0]}, "
+                    f"{r['slots'][1]})): {r['iterations']} iterations, "
+                    f"{r['num_distinct']} distinct; wall {r['wall_s']:.3f} s "
+                    f"(setup {r['setup_s']:.3f}), engine {r['engine_s']:.3f} s; "
+                    f"K2 {r['K2']} at {r['k2_shapes']}, K1 {r['K1']}, Lanczos "
+                    f"{r['lanczos']}; peak +{r['peak_gib']:.3f} GiB; replica "
+                    f"collectives {r['replica_calls']} ({r['replica_bytes']} bytes, "
+                    f"largest {r['replica_largest']}), model "
+                    f"{r['model_calls']} ({r['model_bytes']} bytes){ref}")
+
+    def bounded(every, name, operand_bytes):
+        """At most 2 replica-axis collectives an iteration, none as large
+        as the operand, on every rank."""
+        for rank, rows in enumerate(every):
+            r = rows[name]
+            if not (0 < r["replica_calls"] <= 2 * r["iterations"]
+                    and r["replica_largest"] < operand_bytes):
+                raise AssertionError(f"{name}, rank {rank}: {r['replica_calls']} "
+                                     f"replica collectives in {r['iterations']} "
+                                     f"iterations, largest {r['replica_largest']} "
+                                     f"bytes (operand {operand_bytes})")
+
+    for name, what, n_bytes in (
+            ("eig", f"general eig {EIG_N}², {EIG_CANDIDATES} candidates",
+             EIG_N * EIG_N * 8),
+            ("hermitian_lanczos", f"Hermitian eig {EIG_N}² (Lanczos)", EIG_N * EIG_N * 8),
+            ("hermitian_eigh", f"Hermitian eig {HERM_SMALL_N}² (shared eigh)",
+             HERM_SMALL_N * HERM_SMALL_N * 8),
+            ("svd", f"svd {SVD_M}×{SVD_N}", SVD_M * SVD_N * 8)):
+        lines(every, name, what)
+        bounded(every, name, n_bytes)
+    for rank, rows in enumerate(every):
+        r = rows["eig"]
+        if r["K2"] <= 0 or r["k2_shapes"] != [(k2_rows, EIG_N)]:
+            raise AssertionError(f"eig, rank {rank}: K2 launched {r['K2']} times "
+                                 f"at {r['k2_shapes']}, not at ({k2_rows}, {EIG_N})")
+        if rows["hermitian_lanczos"]["lanczos"] <= 0 or \
+                rows["hermitian_eigh"]["lanczos"] != 0:
+            raise AssertionError(f"rank {rank}: Lanczos calls "
+                                 f"{rows['hermitian_lanczos']['lanczos']} at "
+                                 f"{EIG_N}², {rows['hermitian_eigh']['lanczos']} at "
+                                 f"{HERM_SMALL_N}²")
+    for name, n in (("hermitian_lanczos", EIG_N), ("hermitian_eigh", HERM_SMALL_N)):
+        # every leader of the placed run is an eigenpair: a unit vector's
+        # Rayleigh quotient lies within its residual of an eigenvalue
+        w = torch.linalg.eigvalsh(hermitian_operand(n, SEED, dev).to(
+            torch.complex128)).cpu().numpy()
+        slack = 1e-6 * float(np.abs(w).max())
+        off = [float(np.min(np.abs(w - complex(lam).real))) - res
+               for lam, res in every[0][name]["leaders"]]
+        if not max(off, default=math.inf) <= slack:
+            raise AssertionError(f"{name}: a leader's λ lies {max(off):.3e} past "
+                                 f"its engine residual from eigvalsh")
+        say(16, f"{name}: each of the placed run's {len(off)} leaders' λ within "
+                f"its engine residual (+ {slack:.1e}) of eigvalsh (complex128); "
+                f"placed {every[0][name]['iterations']} iterations, unplaced "
+                f"{every[0][name]['ref_iterations']}")
+    for rank, c in enumerate(checks):
+        say(16, f"K2 vs plain on rank {rank}'s own engine inputs {c['shape']} "
+                f"complex64: residual kernel {c['resid']:.3e}, plain "
+                f"{c['plain_resid']:.3e}; backward error {c['berr']:.3e} (bar "
+                f"{c['bar']:g}); max|Δ| {c['max_abs_err']:.3e}")
+    K, n = k2_rows, EIG_N
+    k2_bytes = (n * (n + 1) // 2 + n - 1 + K + 2 * K * n) * 8
+    k2["bound_ms"], k2["bound_by"] = bound_ms(k2_bytes, 14 * K * n ** 2, FP32_FLOPS)
+    k2["launches"] = every[0]["eig"]["K2"]
+    k2["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    say(16, f"K2 at ({K}, {n}) complex64 on rank 0: kernel {k2['ms']:.4f} ms, "
+            f"plain {k2['plain_ms']:.1f} ms, torch.linalg.solve "
+            f"{k2['library_ms']:.1f} ms, bound {k2['bound_ms']:.4f} ms "
+            f"({k2['bound_by']})")
+
+    t0 = time.perf_counter()
+    every = launch.run(_phase16_linear, 2 * REPLICA_RANKS, backend=MESH_BACKEND,
+                       device="cuda:0", replica=REPLICA_RANKS, model=2)
+    say(16, f"({REPLICA_RANKS}, 2) mesh, {2 * REPLICA_RANKS} ranks sharing the "
+            f"card over {MESH_BACKEND}: {time.perf_counter() - t0:.1f} s with "
+            f"the spawn")
+    n = HEADLINE_N
+    lines(every, "linear", f"linear {n}² κ={COND:g}, A over model, the "
+                           f"population over replica")
+    bounded(every, "linear", n * n * 8)
+    A, b = make_system(n, COND, SEED, dev)
+    fin = every[0]["linear"]["finish"]
+    b64 = b.to(torch.complex128)
+    rel = float(torch.linalg.vector_norm(residual.true_residual_plain(
+        A, torch.from_numpy(fin["x"]).to(dev), b64)) / torch.linalg.vector_norm(b64))
+    for rank, rows in enumerate(every):
+        r = rows["linear"]
+        if r["K1"] <= 0 or r["finish"]["shard"] != (n, n // 2) or \
+                r["iterations"] != mesh_iterations:
+            raise AssertionError(f"linear, rank {rank}: K1 {r['K1']} on a "
+                                 f"{r['finish']['shard']} shard, "
+                                 f"{r['iterations']} iterations (phase 15: "
+                                 f"{mesh_iterations})")
+    if not (fin["rel"] <= TOL and rel <= TOL):
+        raise AssertionError(f"linear (2, 2): refine_distributed {fin['rel']:.3e}, "
+                             f"independent {rel:.3e} > {TOL}")
+    say(16, f"linear (2, 2): {every[0]['linear']['iterations']} iterations (phase "
+            f"15's (1, 2) solve(mesh=): {mesh_iterations}); refine_distributed "
+            f"certified {fin['rel']:.3e} with K1 on each rank's "
+            f"{fin['shard']} shard, independent FP64 residual {rel:.3e}")
+    del A, b, b64
+    torch.cuda.empty_cache()
+    return k2
 
 
 def main():
@@ -2307,8 +2685,14 @@ def main():
 
     # ---- phase 15: the mesh paths, two ranks sharing the card ---------------
     t0 = time.perf_counter()
-    phase15(single)
+    mesh_iterations = phase15(single)
     say(15, f"mesh paths: {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 16: the candidate axis over replica ranks --------------------
+    t0 = time.perf_counter()
+    k2r = phase16(mesh_iterations)
+    say(16, f"the candidate axis over replica ranks: "
+            f"{time.perf_counter() - t0:.1f} s")
 
     k3u = update_rows[SVD_N]
     k64 = kernel_rows[torch.complex64]
@@ -2325,7 +2709,13 @@ def main():
         "replaces": "maus_tpu/ops/pallas/hess_solve.py:158",
         "launches": eig_launches, "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-        "bound_by": k2_by, "library_ms": k2_lib_ms}, *[{
+        "bound_by": k2_by, "library_ms": k2_lib_ms}, {
+        "name": "hess_solve_replica_slots", "route": "cuda",
+        "source": "maus_tpu_torch/csrc/hess_solve_rq.cu",
+        "replaces": "maus_tpu/ops/pallas/hess_solve.py:158",
+        "launches": k2r["launches"], "max_abs_err": k2r["max_abs_err"],
+        "ms": k2r["ms"], "plain_ms": k2r["plain_ms"], "bound_ms": k2r["bound_ms"],
+        "bound_by": k2r["bound_by"], "library_ms": k2r["library_ms"]}, *[{
         "name": name, "route": "cuda", "source": f"maus_tpu_torch/csrc/{src}.cu",
         "replaces": replaces, "launches": pv[key]["launches"],
         "max_abs_err": pv[key]["max_abs_err"], "ms": pv[key]["ms"],

@@ -148,6 +148,17 @@ class SolverConfig:
         return self.dtype.to_real()
 
 
+@dataclasses.dataclass(frozen=True)
+class ReplicaSlots:
+    """The slots ``[lo, hi)`` of the candidate axis that this rank steps,
+    on ``mesh`` (a ``parallel/mesh.Mesh`` whose replica axis splits K);
+    set by ``parallel/placement.place_population``."""
+
+    mesh: Any
+    lo: int
+    hi: int
+
+
 @dataclasses.dataclass
 class Population:
     """Struct-of-arrays candidate population of fixed capacity K.
@@ -157,7 +168,11 @@ class Population:
     (``core/rng.py``). ``v`` is x for a linear system, the eigenvector, or
     the right singular vector; ``u`` is the SVD left vector (``None`` for
     the other problem types); ``lam`` holds λ (eig), σ (SVD, real part) or
-    zeros (linear).
+    zeros (linear). ``slots`` is ``None`` unless the population was placed
+    over replica ranks: then every rank still holds all K slots, and the
+    candidate steps advance only the rank's :class:`ReplicaSlots`. It is
+    placement, not state: checkpoints leave it out
+    (``metadata["checkpoint"]``).
     """
 
     v: torch.Tensor              # (K, N) complex — x, eigenvector, or right
@@ -173,6 +188,8 @@ class Population:
     psi_level: torch.Tensor      # (K,) int32
     keys: torch.Tensor           # (K, 2) int64 — (seed, counter) per slot
     retire_count: torch.Tensor   # (K,) int32
+    slots: Optional[ReplicaSlots] = dataclasses.field(
+        default=None, metadata={"checkpoint": False})
 
     @property
     def capacity(self) -> int:

@@ -9,8 +9,8 @@ into the full width followed by one sum (:func:`gather`), as the JAX code
 itself does (``dist_hessenberg.py:232-236``, ``dist_svd.py:155-159``).
 
 Every collective adds its calls and its bytes (the operand's, per rank) to
-the counters of its kind in every :func:`counting` context open around it
-(``utils/comm_budget.py`` reads one). Both kinds take the tensor where it
+the counters of its kind, and of its mesh axis, in every :func:`counting`
+context open around it (``utils/comm_budget.py`` reads one). Both kinds take the tensor where it
 lies: gloo and NCCL run them on CUDA tensors.
 """
 from __future__ import annotations
@@ -21,24 +21,36 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from .mesh import MODEL_AXIS, Mesh
+from .mesh import MODEL_AXIS, REPLICA_AXIS, Mesh
 
 KINDS = ("all_reduce", "broadcast")
+AXES = (MODEL_AXIS, REPLICA_AXIS)
+
+
+def _zeros(keys):
+    return dataclasses.field(default_factory=lambda: dict.fromkeys(keys, 0))
 
 
 @dataclasses.dataclass
 class Counts:
     """Calls, bytes and the largest single call's bytes per collective
-    kind."""
+    kind, and the same per mesh axis (``axis_calls``, ``axis_bytes``,
+    ``axis_largest``)."""
 
-    calls: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(KINDS, 0))
-    bytes: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(KINDS, 0))
-    largest: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(KINDS, 0))
+    calls: dict = _zeros(KINDS)
+    bytes: dict = _zeros(KINDS)
+    largest: dict = _zeros(KINDS)
+    axis_calls: dict = _zeros(AXES)
+    axis_bytes: dict = _zeros(AXES)
+    axis_largest: dict = _zeros(AXES)
 
-    def add(self, kind: str, nbytes: int) -> None:
-        self.calls[kind] += 1
-        self.bytes[kind] += nbytes
-        self.largest[kind] = max(self.largest[kind], nbytes)
+    def add(self, kind: str, axis: str, nbytes: int) -> None:
+        for calls, total, largest, key in (
+                (self.calls, self.bytes, self.largest, kind),
+                (self.axis_calls, self.axis_bytes, self.axis_largest, axis)):
+            calls[key] += 1
+            total[key] += nbytes
+            largest[key] = max(largest[key], nbytes)
 
 
 _open: list = []
@@ -56,9 +68,9 @@ def counting():
         _open.remove(counts)
 
 
-def _record(kind: str, t: torch.Tensor) -> None:
+def _record(kind: str, axis: str, t: torch.Tensor) -> None:
     for counts in _open:
-        counts.add(kind, t.numel() * t.element_size())
+        counts.add(kind, axis, t.numel() * t.element_size())
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS,
@@ -69,7 +81,7 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS,
         return t
     reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     out = t.contiguous().clone()
-    _record("all_reduce", out)
+    _record("all_reduce", axis, out)
     dist.all_reduce(out, op=reduce_op, group=mesh.groups[axis])
     return out
 
@@ -82,7 +94,7 @@ def broadcast(t: torch.Tensor, src: int, mesh: Mesh,
     if mesh.size(axis) == 1:
         return t
     out = t.contiguous().clone()
-    _record("broadcast", out)
+    _record("broadcast", axis, out)
     dist.broadcast(out, src=mesh.global_rank(axis, src), group=mesh.groups[axis])
     return out
 

@@ -8,7 +8,12 @@ stuckness and convergence are masked tensor arithmetic on the
 operand only through ``parallel/placement``'s ``rows``, ``left``,
 ``rows_conj``, ``fro`` and ``diagonal``: the plain expressions for a tensor,
 local products and collectives for a column-sharded operand (the mesh
-engine), where the JAX package relies on GSPMD.
+engine), where the JAX package relies on GSPMD. Each step runs its
+per-candidate work through ``parallel/placement.on_slots``: on the whole
+population, or on this rank's slots of one placed over replica ranks
+(``place_population``), whose rows then come back to every rank in one
+collective; the bookkeeping after it (α, status, the ``StepStats``
+fractions, the regress scale) always sees all K candidates.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from ..ops.batched_solve import batched_shifted_solve, psi_ladder, solve_any
 from ..ops.gmres import gmres_batched, jacobi_from_diag
 from ..ops.hessenberg import solve_shifted_via_hessenberg
 from ..ops.regularize import psi_magnitude, shift_diagonal
-from ..parallel.placement import diagonal, fro, left, rows, rows_conj
+from ..parallel.placement import diagonal, fro, left, on_slots, rows, rows_conj
 
 # Eigen shift locking (step_eigen): a candidate keeps its carried (diverse)
 # shift until its eigenresidual drops below this fraction of the operand's
@@ -192,6 +197,8 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
     damped mixing ``x_k ← (1−α_k)x_k + α_k x̂`` plus the bookkeeping is
     per-candidate work. ``direct_solve``: a ``(fac, b) → x̂`` in place of
     ``solve_any`` (the mesh engine's ``dist_qr_solve`` on sharded factors).
+    On a population placed over replica ranks x̂ is computed on every rank
+    and the mixing and the residual products run on the rank's slots.
     """
     bnorm = torch.clamp_min(torch.linalg.vector_norm(b),
                             torch.finfo(cfg.real_dtype).tiny)
@@ -216,11 +223,15 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
     ok = _finite_rows(x_hat[None, :])[0]
     solve_ok = ok.expand(pop.capacity)
 
-    alpha_c = pop.alpha.to(cfg.dtype)[:, None]
-    v_new = (1.0 - alpha_c) * pop.v + alpha_c * x_hat[None, :]
-    v_new = torch.where(solve_ok[:, None], v_new, pop.v)
+    def mix(p: Population):
+        alpha_c = p.alpha.to(cfg.dtype)[:, None]
+        v_new = (1.0 - alpha_c) * p.v + alpha_c * x_hat[None, :]
+        v_new = torch.where(ok, v_new, p.v)
+        resid = torch.linalg.vector_norm(rows(A, v_new) - b[None, :],
+                                         dim=-1) / bnorm
+        return v_new, resid.to(cfg.real_dtype)
 
-    resid = torch.linalg.vector_norm(rows(A, v_new) - b[None, :], dim=-1) / bnorm
+    v_new, resid = on_slots(pop, mix)
     frozen = _frozen(pop)
     # the linear path escalates at population level: the shared
     # factorization's rung (strategy frustration) is each candidate's depth
@@ -228,7 +239,6 @@ def step_linear(cfg: SolverConfig, A: torch.Tensor, b: torch.Tensor, fac,
     pop = dataclasses.replace(
         pop, v=torch.where(frozen[:, None], pop.v, v_new),
         psi_level=torch.where(frozen, pop.psi_level, rung.expand(pop.capacity)))
-    resid = resid.to(cfg.real_dtype)
     regress = _regress_frac(cfg, pop, resid, frozen)
     pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
                               _finite_rows(v_new))
@@ -253,96 +263,103 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     ``_SHIFT_LOCK_FRAC``·‖A‖_F/√N, then switches to the Rayleigh quotient.
     ``dist_solve``: a ``(λ, B, ψ) → W`` shifted solve in place of the
     Hessenberg one (the mesh engine's ``dist_solve_shifted`` against the
-    column-sharded Hessenberg form)."""
+    column-sharded Hessenberg form). On a population placed over replica
+    ranks everything up to the new iterates, λ and residuals runs on the
+    rank's slots: K2 solves K/r shifts."""
     N = A.shape[0]
-    K = pop.capacity
     rdt = cfg.real_dtype
     fro_a = fro(A)
     anorm = (fro_a / torch.sqrt(torch.tensor(
         float(N), dtype=fro_a.dtype, device=A.device))).to(torch.float32)
     psi_scaled = cfg.psi_base * anorm * 1e6   # ≈ ε²·‖A‖ for complex64
+    direct = int(strat.solver_pref) == SolverPreference.DIRECT
 
-    Av = rows(A, pop.v)
-    vv = torch.sum(pop.v.conj() * pop.v, dim=-1)
-    rq = torch.where(vv.abs() > 1e-12,
-                     torch.sum(pop.v.conj() * Av, dim=-1) / vv, pop.lam)
-    aligned = pop.residual < _SHIFT_LOCK_FRAC * anorm
-    lam = torch.where(aligned, rq, pop.lam)
+    def advance(p: Population):
+        K = p.capacity
+        Av = rows(A, p.v)
+        vv = torch.sum(p.v.conj() * p.v, dim=-1)
+        rq = torch.where(vv.abs() > 1e-12,
+                         torch.sum(p.v.conj() * Av, dim=-1) / vv, p.lam)
+        aligned = p.residual < _SHIFT_LOCK_FRAC * anorm
+        lam = torch.where(aligned, rq, p.lam)
 
-    if int(strat.solver_pref) == SolverPreference.DIRECT:
-        if hess_cache is not None or dist_solve is not None:
+        if direct and (hess_cache is not None or dist_solve is not None):
             shifted = dist_solve or (lambda l_, B_, p_: solve_shifted_via_hessenberg(
                 hess_cache, l_, B_, p_))
 
             def solve_at(attempt_k):
                 psi = psi_magnitude(psi_scaled, strat.psi_aggression,
-                                    attempt_k, pop.stuck)
-                return shifted(lam, pop.v, psi)
+                                    attempt_k, p.stuck)
+                return shifted(lam, p.v, psi)
 
             W, attempts = psi_ladder(solve_at, K, cfg.max_psi_attempts,
                                      device=A.device)
-        else:
+        elif direct:
             W, attempts = batched_shifted_solve(
-                A, lam, pop.stuck, psi_scaled, strat.psi_aggression, pop.v,
+                A, lam, p.stuck, psi_scaled, strat.psi_aggression, p.v,
                 max_attempts=cfg.max_psi_attempts)
-    else:
-        # Jacobi–Davidson correction: inverse iteration through the nearly
-        # singular (A − λI) is where restarted GMRES stalls, so solve the
-        # projected system (I − vvᴴ)(A − λI)(I − vvᴴ) t = −r, t ⊥ v, which is
-        # well conditioned on v's complement, and step to v + t.
-        vk = pop.v
-        r = Av - lam[:, None] * vk
+        else:
+            # Jacobi–Davidson correction: inverse iteration through the
+            # nearly singular (A − λI) is where restarted GMRES stalls, so
+            # solve the projected system (I − vvᴴ)(A − λI)(I − vvᴴ) t = −r,
+            # t ⊥ v, which is well conditioned on v's complement, and step
+            # to v + t.
+            vk = p.v
+            r = Av - lam[:, None] * vk
 
-        def cproj(X):
-            return X - torch.sum(vk.conj() * X, dim=-1, keepdim=True) * vk
+            def cproj(X):
+                return X - torch.sum(vk.conj() * X, dim=-1, keepdim=True) * vk
 
-        def matvec(X):
-            Xp = cproj(X)
-            return cproj(rows(A, Xp) - lam[:, None] * Xp)
+            def matvec(X):
+                Xp = cproj(X)
+                return cproj(rows(A, Xp) - lam[:, None] * Xp)
 
-        diag = diagonal(A)[None, :] - lam[:, None]
-        res = gmres_batched(matvec, -cproj(r), x0=torch.zeros_like(vk),
-                            precond_diag=jacobi_from_diag(diag), tol=1e-2,
-                            restart=min(32, N), max_restarts=2)
-        W = vk + cproj(res.x)
-        attempts = torch.zeros((K,), dtype=torch.int32, device=A.device)
+            diag = diagonal(A)[None, :] - lam[:, None]
+            res = gmres_batched(matvec, -cproj(r), x0=torch.zeros_like(vk),
+                                precond_diag=jacobi_from_diag(diag), tol=1e-2,
+                                restart=min(32, N), max_restarts=2)
+            W = vk + cproj(res.x)
+            attempts = torch.zeros((K,), dtype=torch.int32, device=A.device)
 
-    tiny = torch.finfo(rdt).tiny
-    solve_ok = _finite_rows(W) & (torch.linalg.vector_norm(W, dim=-1) > 0)
+        tiny = torch.finfo(rdt).tiny
+        solve_ok = _finite_rows(W) & (torch.linalg.vector_norm(W, dim=-1) > 0)
+        # damped update + renormalize: normalize w before mixing so α mixes
+        # directions, and align its phase with v so the mix does not cancel
+        Wn = W / torch.clamp_min(torch.linalg.vector_norm(W, dim=-1, keepdim=True),
+                                 tiny)
+        phase = torch.sum(Wn.conj() * p.v, dim=-1)
+        phase = torch.where(phase.abs() > 1e-12, phase / phase.abs(),
+                            torch.ones_like(phase))
+        Wn = Wn * phase[:, None]
+        # while the shift is locked, take the full inverse-iteration step;
+        # α-damped mixing resumes with RQI
+        alpha_eff = torch.where(aligned, p.alpha.to(rdt),
+                                torch.ones((), dtype=rdt, device=A.device))
+        alpha_c = alpha_eff.to(cfg.dtype)[:, None]
+        v_new = (1.0 - alpha_c) * p.v + alpha_c * Wn
+        v_new = v_new / torch.clamp_min(
+            torch.linalg.vector_norm(v_new, dim=-1, keepdim=True), tiny)
+        v_new = torch.where(solve_ok[:, None], v_new, p.v)
+
+        # Rayleigh quotient and residual against the operand
+        Av_new = rows(A, v_new)
+        lam_new = torch.sum(v_new.conj() * Av_new, dim=-1)
+        resid = torch.linalg.vector_norm(Av_new - lam_new[:, None] * v_new, dim=-1)
+
+        # the carried λ: a locked shift persists until the NEW iterate aligns
+        aligned_new = resid < _SHIFT_LOCK_FRAC * anorm
+        lam_keep = torch.where(aligned_new, lam_new, p.lam)
+        return (v_new, lam_keep, resid.to(rdt), solve_ok,
+                attempts.to(torch.int32),
+                _finite_rows(v_new) & _finite_rows(lam_new[:, None]))
+
+    v_new, lam_keep, resid, solve_ok, attempts, params_finite = \
+        on_slots(pop, advance)
     frozen = _frozen(pop)
     pop = dataclasses.replace(
-        pop, psi_level=torch.where(frozen, pop.psi_level,
-                                   attempts.to(torch.int32)))
-
-    # damped update + renormalize: normalize w before mixing so α mixes
-    # directions, and align its phase with v so the mix does not cancel
-    Wn = W / torch.clamp_min(torch.linalg.vector_norm(W, dim=-1, keepdim=True),
-                             tiny)
-    phase = torch.sum(Wn.conj() * pop.v, dim=-1)
-    phase = torch.where(phase.abs() > 1e-12, phase / phase.abs(),
-                        torch.ones_like(phase))
-    Wn = Wn * phase[:, None]
-    # while the shift is locked, take the full inverse-iteration step;
-    # α-damped mixing resumes with RQI
-    alpha_eff = torch.where(aligned, pop.alpha.to(rdt),
-                            torch.ones((), dtype=rdt, device=A.device))
-    alpha_c = alpha_eff.to(cfg.dtype)[:, None]
-    v_new = (1.0 - alpha_c) * pop.v + alpha_c * Wn
-    v_new = v_new / torch.clamp_min(
-        torch.linalg.vector_norm(v_new, dim=-1, keepdim=True), tiny)
-    v_new = torch.where(solve_ok[:, None], v_new, pop.v)
-
-    # Rayleigh quotient and residual against the operand
-    Av_new = rows(A, v_new)
-    lam_new = torch.sum(v_new.conj() * Av_new, dim=-1)
-    resid = torch.linalg.vector_norm(Av_new - lam_new[:, None] * v_new, dim=-1)
-
-    # the carried λ: a locked shift persists until the NEW iterate aligns
-    aligned_new = resid < _SHIFT_LOCK_FRAC * anorm
-    lam_keep = torch.where(aligned_new, lam_new, pop.lam)
-    pop = dataclasses.replace(pop,
-                              v=torch.where(frozen[:, None], pop.v, v_new),
-                              lam=torch.where(frozen, pop.lam, lam_keep))
+        pop, psi_level=torch.where(frozen, pop.psi_level, attempts),
+        v=torch.where(frozen[:, None], pop.v, v_new),
+        lam=torch.where(frozen, pop.lam, lam_keep))
     # acceptance/regress scale: max(‖A‖_F/√N, max |RQ|); the Rayleigh
     # quotients of unit iterates lower-bound ‖A‖₂ on low-rank spectra
     lam_abs = pop.lam.abs()
@@ -350,10 +367,8 @@ def step_eigen(cfg: SolverConfig, A: torch.Tensor, pop: Population,
         anorm.to(rdt),
         torch.max(torch.where(torch.isfinite(lam_abs), lam_abs,
                               torch.zeros_like(lam_abs))).to(rdt))
-    resid = resid.to(rdt)
     regress = _regress_frac(cfg, pop, resid, frozen, floor_scale=scale_eff)
-    pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
-                              _finite_rows(v_new) & _finite_rows(lam_new[:, None]),
+    pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat, params_finite,
                               floor_scale=scale_eff)
     active_f = (~frozen).to(torch.float32)
     nact = torch.clamp_min(active_f.sum(), 1.0)
@@ -382,13 +397,25 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     the reference's alternating power iteration on its own. A candidate whose
     direction A annihilates (σ < 1e-8·‖A‖_F/√min(M, N)) has found a null
     triplet and is judged by ‖Av‖ alone. Converged candidates keep polishing
-    their data (status frozen), except null triplets, whose data freezes."""
+    their data (status frozen), except null triplets, whose data freezes.
+    On a population placed over replica ranks every rank runs the block
+    round on the whole block (its QRs and small SVD mix every candidate,
+    and the Ritz slot of candidate k is k mod min(K, M, N) over the whole
+    K); the damped steps and the residual products run on the rank's
+    slots."""
     conv = pop.status == CandidateStatus.CONVERGED
     rdt = cfg.real_dtype
     tiny = torch.finfo(rdt).tiny
+    K = pop.capacity
+    # zero-singular-value detection, relative to the operand's scale
+    fro_a = fro(A)
+    a_scale = (fro_a / torch.sqrt(torch.tensor(
+        float(min(A.shape)), dtype=fro_a.dtype, device=A.device))).to(rdt)
+    reseeded = torch.zeros((K,), dtype=torch.bool, device=A.device)
+    ritz = ()
 
     if cfg.orthogonalize:
-        K, N = pop.v.shape
+        N = pop.v.shape[1]
         M = pop.u.shape[1]
         r = min(K, M, N)
         # reseed non-finite or collapsed directions (a slot draws only then)
@@ -413,52 +440,54 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
         slot_idx = torch.arange(K, device=A.device) % r
         ovl = (V.conj() @ V_ritz).abs()                         # (K, r)
         idx = torch.where(conv, torch.argmax(ovl, dim=-1), slot_idx)
-        v_ritz = V_ritz.T[idx]
-        u_ritz = U_ritz.T[idx]
+        ritz = (V, V_ritz.T[idx], U_ritz.T[idx])
 
-        # damped step toward the Ritz triplet, α adapted per candidate
-        alpha_c = pop.alpha.to(cfg.dtype)[:, None]
-        v_mix = (1.0 - alpha_c) * V + alpha_c * _align(v_ritz, V)
-        v_new = v_mix / torch.clamp_min(
-            torch.linalg.vector_norm(v_mix, dim=-1, keepdim=True), tiny)
-        u_mix = (1.0 - alpha_c) * pop.u + alpha_c * _align(u_ritz, pop.u)
-        u_new = u_mix / torch.clamp_min(
-            torch.linalg.vector_norm(u_mix, dim=-1, keepdim=True), tiny)
-        # σ of the mixed triplet: the phase-absorbed Rayleigh quotient uᴴAv
-        Avm = rows(A, v_new)                                    # (K, M)
-        rq = torch.sum(u_new.conj() * Avm, dim=-1)
-        rq_ph = torch.where(rq.abs() > 1e-30, rq / rq.abs(), torch.ones_like(rq))
-        u_new = u_new * rq_ph[:, None]          # uᴴAv real ≥ 0 ⇒ σ = |rq|
-        sigma = rq.abs().to(rdt)
-        s_u = torch.linalg.vector_norm(Avm, dim=-1).to(rdt)
-        solve_ok = _finite_rows(u_new) & _finite_rows(v_new)
-    else:
-        # the reference's per-candidate alternating power iteration;
-        # (Aᴴu)[n] = Σ_m conj(A[m, n]) u[m], a product with conj(A)
-        Av = rows(A, pop.v)                                     # (K, M)
-        s_u = torch.linalg.vector_norm(Av, dim=-1)
-        u_new = Av / torch.clamp_min(s_u, tiny)[:, None]
-        AHu = rows_conj(A, u_new)                               # (K, N)
-        s_v = torch.linalg.vector_norm(AHu, dim=-1)
-        v_new = AHu / torch.clamp_min(s_v, tiny)[:, None]
-        sigma = torch.maximum(s_u, s_v).to(rdt)
-        solve_ok = _finite_rows(u_new) & _finite_rows(v_new) & (s_u > 1e-30)
-        reseeded = torch.zeros_like(solve_ok)
+    def advance(p: Population, *ritz_rows):
+        if cfg.orthogonalize:
+            # damped step toward the Ritz triplet, α adapted per candidate
+            V, v_ritz, u_ritz = ritz_rows
+            alpha_c = p.alpha.to(cfg.dtype)[:, None]
+            v_mix = (1.0 - alpha_c) * V + alpha_c * _align(v_ritz, V)
+            v_new = v_mix / torch.clamp_min(
+                torch.linalg.vector_norm(v_mix, dim=-1, keepdim=True), tiny)
+            u_mix = (1.0 - alpha_c) * p.u + alpha_c * _align(u_ritz, p.u)
+            u_new = u_mix / torch.clamp_min(
+                torch.linalg.vector_norm(u_mix, dim=-1, keepdim=True), tiny)
+            # σ of the mixed triplet: the phase-absorbed Rayleigh quotient uᴴAv
+            Avm = rows(A, v_new)                                # (K, M)
+            rq = torch.sum(u_new.conj() * Avm, dim=-1)
+            rq_ph = torch.where(rq.abs() > 1e-30, rq / rq.abs(),
+                                torch.ones_like(rq))
+            u_new = u_new * rq_ph[:, None]      # uᴴAv real ≥ 0 ⇒ σ = |rq|
+            sigma = rq.abs().to(rdt)
+            s_u = torch.linalg.vector_norm(Avm, dim=-1).to(rdt)
+            solve_ok = _finite_rows(u_new) & _finite_rows(v_new)
+        else:
+            # the reference's per-candidate alternating power iteration;
+            # (Aᴴu)[n] = Σ_m conj(A[m, n]) u[m], a product with conj(A)
+            Av = rows(A, p.v)                                   # (K, M)
+            s_u = torch.linalg.vector_norm(Av, dim=-1)
+            u_new = Av / torch.clamp_min(s_u, tiny)[:, None]
+            AHu = rows_conj(A, u_new)                           # (K, N)
+            s_v = torch.linalg.vector_norm(AHu, dim=-1)
+            v_new = AHu / torch.clamp_min(s_v, tiny)[:, None]
+            sigma = torch.maximum(s_u, s_v).to(rdt)
+            solve_ok = _finite_rows(u_new) & _finite_rows(v_new) & (s_u > 1e-30)
 
-    # zero-singular-value detection, relative to the operand's scale
-    fro_a = fro(A)
-    a_scale = (fro_a / torch.sqrt(torch.tensor(
-        float(min(A.shape)), dtype=fro_a.dtype, device=A.device))).to(rdt)
-    zero_sv = s_u < 1e-8 * torch.clamp_min(a_scale, tiny)
-    sigma = torch.where(zero_sv, torch.zeros_like(sigma), sigma)
+        zero_sv = s_u < 1e-8 * torch.clamp_min(a_scale, tiny)
+        sigma = torch.where(zero_sv, torch.zeros_like(sigma), sigma)
+        # two-sided residual ‖Av − σu‖ + ‖Aᴴu − σv‖; for a null vector ‖Av‖
+        # alone (u is arbitrary for σ = 0)
+        sig_c = sigma[:, None].to(cfg.dtype)
+        r1 = torch.linalg.vector_norm(rows(A, v_new) - sig_c * u_new, dim=-1)
+        r2 = torch.linalg.vector_norm(rows_conj(A, u_new) - sig_c * v_new, dim=-1)
+        resid = torch.where(zero_sv, r1.to(rdt), (r1 + r2).to(rdt))
+        solve_ok = solve_ok | (zero_sv & _finite_rows(v_new))
+        return (v_new, u_new, sigma, resid, solve_ok,
+                _finite_rows(v_new) & _finite_rows(u_new))
 
-    # two-sided residual ‖Av − σu‖ + ‖Aᴴu − σv‖; for a null vector ‖Av‖
-    # alone (u is arbitrary for σ = 0)
-    sig_c = sigma[:, None].to(cfg.dtype)
-    r1 = torch.linalg.vector_norm(rows(A, v_new) - sig_c * u_new, dim=-1)
-    r2 = torch.linalg.vector_norm(rows_conj(A, u_new) - sig_c * v_new, dim=-1)
-    resid = torch.where(zero_sv, r1.to(rdt), (r1 + r2).to(rdt))
-    solve_ok = solve_ok | (zero_sv & _finite_rows(v_new))
+    v_new, u_new, sigma, resid, solve_ok, params_finite = \
+        on_slots(pop, advance, *ritz)
 
     retired = pop.status == CandidateStatus.RETIRED
     frozen = conv | retired
@@ -483,8 +512,7 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     pop = dataclasses.replace(
         pop, residual=torch.where(conv & solve_ok & ~null_conv, resid,
                                   pop.residual))
-    pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat,
-                              _finite_rows(v_new) & _finite_rows(u_new),
+    pop = _adapt_and_classify(cfg, pop, resid, solve_ok, strat, params_finite,
                               floor_scale=scale_eff)
     active_f = (~frozen).to(torch.float32)
     nact = torch.clamp_min(active_f.sum(), 1.0)

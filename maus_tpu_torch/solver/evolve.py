@@ -24,8 +24,20 @@ the JAX package: the linear path's shared factorization is the
 column-sharded ``dist_qr`` and its solves ``dist_qr_solve``; every shifted
 solve of the eig path, Hermitian operands included, goes through the
 column-sharded Hessenberg form (``dist_solve_shifted``; a replicated eigh
-or Lanczos would defeat the sharding); the SVD step needs no routing. Every
-rank runs the same loop on the same replicated population.
+or Lanczos would defeat the sharding); the SVD step needs no routing.
+
+Every rank runs the same loop on the same replicated population. A
+population placed over replica ranks (``parallel/placement.
+place_population``, as in the JAX package: ``carry0.pop =
+place_population(mesh, carry0.pop)``, then :func:`evolve_while` or
+:func:`evolve_metrics` from ``carry0``) splits only the candidate step:
+each rank steps its K/r slots and the stepped rows come back to every rank
+in one replica-axis collective an iteration, while the diagnostics, the
+strategy, population management, the escalation and failover logic, the
+stall tracking and the metrics rows see the whole population on every
+rank, so every rank branches alike. With model > 1 too, the steps'
+products and shifted solves run inside the model group of the rank's
+replica index.
 
 Not carried over: the host-refactor handoff and ``refactor_psi`` (an XLA:TPU
 scoped-VMEM workaround) and the hoisted large-N Hessenberg program (a TPU

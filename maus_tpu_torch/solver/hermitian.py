@@ -9,6 +9,9 @@ spectrum in ⌈N/K⌉ rounds. Beyond it, or for sparse input, each candidate
 runs a batched Lanczos from its own vector, deflated against the converged
 vectors, and takes its best unclaimed Ritz pair
 (:func:`step_hermitian_lanczos`; the reference's ARPACK ``eigsh`` branch).
+On a population placed over replica ranks (``parallel/placement``) the
+claim sets and the deflation basis come from the whole population, and the
+snaps and Lanczos runs from the rank's slots only.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from ..core.types import CandidateStatus, Population, SolverConfig, StrategyState
 from ..ops.lanczos import lanczos_batched
+from ..parallel.placement import on_slots
 from ..utils.precision import full_precision
 from .candidate import StepStats
 
@@ -72,16 +76,19 @@ def step_hermitian(cfg: SolverConfig, A: torch.Tensor, cache: EighCache,
     owned_idx = torch.argmin(dist, dim=-1)                              # (K,)
     claimed = torch.zeros(N, dtype=torch.int32, device=A.device).scatter_reduce(
         0, owned_idx, conv.to(torch.int32), "amax") > 0                 # (N,)
-
-    overlap = (pop.v @ cache.V.conj()).abs()                            # (K, N)
-    overlap = torch.where(claimed[None, :], float("-inf"), overlap)
-    snap = torch.argmax(overlap, dim=-1)                                # (K,)
     any_unclaimed = (~claimed).any()
 
-    v_new = cache.V[:, snap].T                                          # (K, N)
-    lam_new = cache.w[snap].to(cfg.dtype)
-    resid = torch.linalg.vector_norm(v_new @ A.T - lam_new[:, None] * v_new,
-                                     dim=-1).to(cfg.real_dtype)
+    def snap_to(p: Population):
+        overlap = (p.v @ cache.V.conj()).abs()                          # (K, N)
+        overlap = torch.where(claimed[None, :], float("-inf"), overlap)
+        snap = torch.argmax(overlap, dim=-1)                            # (K,)
+        v_new = cache.V[:, snap].T                                      # (K, N)
+        lam_new = cache.w[snap].to(cfg.dtype)
+        resid = torch.linalg.vector_norm(v_new @ A.T - lam_new[:, None] * v_new,
+                                         dim=-1).to(cfg.real_dtype)
+        return v_new, lam_new, resid
+
+    v_new, lam_new, resid = on_slots(pop, snap_to)
     thresh_eff = torch.clamp_min(strat.threshold, cfg.convergence_floor) \
         * _anorm(cfg, A)
 
@@ -112,29 +119,32 @@ def step_hermitian_lanczos(cfg: SolverConfig, A: torch.Tensor, pop: Population,
     active = ~conv & ~retired
 
     Vc = pop.v * conv.to(cfg.dtype)[:, None]
-    coeff = Vc.conj() @ pop.v.T                                         # (K, K)
-    v0 = pop.v - coeff.T @ Vc
-    norms = torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
-    v0 = torch.where(norms > 1e-6, v0 / torch.clamp_min(norms, 1e-30), pop.v)
-
-    res = lanczos_batched(A, v0, k=k, m=m)
-
     # a Ritz pair is claimed when a converged candidate already owns its
     # eigenvalue (the duplicate rule's value tolerance)
     lam_conv = torch.where(conv, pop.lam.real, float("inf"))            # (K,)
-    dist = (res.eigenvalues[:, :, None] - lam_conv[None, None, :]).abs()
-    tol_eff = cfg.lambda_similarity_tol + res.eigenvalues.abs()[:, :, None] * 1e-6
-    is_claimed = (dist < tol_eff).any(dim=-1)                           # (K, k)
 
-    # the best unclaimed Ritz pair per candidate (lowest residual)
-    score = res.residuals + torch.where(is_claimed, 1e30, 0.0)
-    pick = torch.argmin(score, dim=-1)                                  # (K,)
-    rows = torch.arange(pop.capacity, device=A.device)
-    v_new = res.eigenvectors[rows, pick]                                # (K, N)
-    lam_new = res.eigenvalues[rows, pick].to(cfg.dtype)
-    resid_new = res.residuals[rows, pick].to(cfg.real_dtype)
-    any_unclaimed = (~is_claimed).any(dim=-1)                           # (K,)
+    def run(p: Population):
+        coeff = Vc.conj() @ p.v.T                                       # (K, K)
+        v0 = p.v - coeff.T @ Vc
+        norms = torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+        v0 = torch.where(norms > 1e-6, v0 / torch.clamp_min(norms, 1e-30), p.v)
 
+        res = lanczos_batched(A, v0, k=k, m=m)
+        dist = (res.eigenvalues[:, :, None] - lam_conv[None, None, :]).abs()
+        tol_eff = cfg.lambda_similarity_tol + \
+            res.eigenvalues.abs()[:, :, None] * 1e-6
+        is_claimed = (dist < tol_eff).any(dim=-1)                       # (K, k)
+
+        # the best unclaimed Ritz pair per candidate (lowest residual)
+        score = res.residuals + torch.where(is_claimed, 1e30, 0.0)
+        pick = torch.argmin(score, dim=-1)                              # (K,)
+        rows = torch.arange(p.capacity, device=A.device)
+        return (res.eigenvectors[rows, pick],                           # (K, N)
+                res.eigenvalues[rows, pick].to(cfg.dtype),
+                res.residuals[rows, pick].to(cfg.real_dtype),
+                (~is_claimed).any(dim=-1))
+
+    v_new, lam_new, resid_new, any_unclaimed = on_slots(pop, run)
     take = active & any_unclaimed & torch.isfinite(resid_new)
     good = take & (resid_new < torch.clamp_min(strat.threshold,
                                                cfg.convergence_floor)

@@ -41,8 +41,12 @@ MESH_KEY = "__mesh_model__"
 
 
 def _items(node):
+    """A node's children by name; a dataclass field whose metadata says
+    ``checkpoint: False`` (a population's replica placement) is not state
+    and is left out, so a loaded tree keeps the template's value."""
     if dataclasses.is_dataclass(node):
-        return [(f.name, getattr(node, f.name)) for f in dataclasses.fields(node)]
+        return [(f.name, getattr(node, f.name)) for f in dataclasses.fields(node)
+                if f.metadata.get("checkpoint", True)]
     if isinstance(node, dict):
         return list(node.items())
     raise TypeError(f"cannot checkpoint a {type(node).__name__}")

@@ -100,7 +100,7 @@ def carry_from_numpy(leaves, device=None):
     pop = leaves.pop
     fields = {}
     for f in dataclasses.fields(Population):
-        val = getattr(pop, f.name)
+        val = getattr(pop, f.name, None)      # the port's ``slots``: None
         if f.name == "keys":
             val = keys_from_threefry(val)
         fields[f.name] = None if val is None else _t(val, device)
