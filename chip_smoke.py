@@ -12,9 +12,11 @@ as an A/B; 16 eigenpairs of a
 Hermitian complex64 operand at 4096² (deflated Lanczos) and 2048² (shared
 eigh), both finished through P4; the reference's four scenarios through
 the CLI; checkpoint/resume and per-iteration metrics of the linear and SVD
-runs; KAIROSAGE's genesis cycles with stage III on the card; and the mesh
+runs; KAIROSAGE's genesis cycles with stage III on the card; the mesh
 paths (solve/eig/svd(mesh=), MeshSolver, sharded checkpoints, IslandAGE
-over replica ranks, the CLI's --mesh-model) on two ranks sharing the card.
+over replica ranks, the CLI's --mesh-model) on two ranks sharing the card;
+and the port's measuring programs (python -m maus_tpu_torch bench and
+maus_tpu_torch/benchmarks/), each in its own process.
 
     python3 chip_smoke.py
 
@@ -154,7 +156,18 @@ Phases, each printing its own lines:
      (σ) within the two runs' engine residuals. Per rank: wall and engine
      seconds, K2/K1 launches, peak memory rise, replica-axis collectives
      (at most 2 an iteration, none as large as the operand) and their
-     bytes.
+     bytes;
+ 17. the measuring programs (maus_tpu_torch/benchmarks/), each run as its
+     own process with python -m, as a user runs it: python -m
+     maus_tpu_torch bench (the headline solve at 4096² with the kernel
+     scorecard), throughput, spectral_large --sizes 4096, eig_paths,
+     solve16k and age. Every line is printed, and held to its program's
+     keys and to this card; the headline and 16384² solves certified
+     ≤ 1e-8; the eig, Hermitian eig and SVD rows ≥ 16 distinct at tol; the
+     scorecard's K1 and K2 within 10% of phases 2 and 5, and no sol_frac
+     above 1.05; the direct eig branch at its target (the Jacobi–Davidson
+     branch reported); the AGE 5×20 library as phase 14's and the
+     scenarios 4/4.
 On every solver path K3 launches once for each trailing update of the
 path's LUs, and PR 3's CUDA-core body never (checked).
 Then a JSON line with the kernel table (K2 also at phase 16's (16, 4096)),
@@ -173,6 +186,15 @@ import statistics
 import subprocess
 import sys
 import time
+
+# the seeded operands, the CUDA-event clock and the bound arithmetic that
+# the measuring programs use too (H100 SXM peaks from NVIDIA's data sheet:
+# HBM rate, FP32 and FP64 outside the tensor cores, the TF32 tensor-core
+# rate that K3's split-TF32 products use)
+from maus_tpu_torch.benchmarks.common import (
+    FP32_FLOPS, FP64_FLOPS, HBM_BYTES_PER_S, TF32_FLOPS, bound_ms, card_line,
+    cnormal, eig_operand, hermitian_operand, k1_work, k2_work, make_system,
+    svd_operand, time_ms)
 
 HEADLINE_N = 4096
 LARGE_N = 16384
@@ -234,81 +256,10 @@ REPLICA_RANKS = 2
 AGE_CYCLES = 5
 AGE_CANDIDATES = 20
 AGE_BATCH = 4096
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, and the FP32 and FP64 rates
-# outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-FP64_FLOPS = 34e12
-# the dense TF32 tensor-core rate, which K3's split-TF32 products use
-TF32_FLOPS = 495e12
 
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
-
-
-def make_system(n, cond, seed, device):
-    """A = Q₁·diag(logspace(0, −log10 κ))·Q₂ᴴ with Haar Q₁, Q₂, and a random
-    b, built on the card in complex64 from a seeded torch.Generator."""
-    import torch
-
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-
-    def cnormal(*shape):
-        re = torch.randn(*shape, generator=g, dtype=torch.float32, device=device)
-        im = torch.randn(*shape, generator=g, dtype=torch.float32, device=device)
-        return torch.complex(re, im)
-
-    def haar():
-        q, r = torch.linalg.qr(cnormal(n, n))
-        d = torch.diagonal(r)
-        return q * (d / d.abs())[None, :]
-
-    q1 = haar()
-    q2 = haar()
-    s = torch.logspace(0.0, -math.log10(cond), n,
-                       dtype=torch.float32, device=device).to(torch.complex64)
-    A = (q1 * s[None, :]) @ q2.mH
-    del q1, q2
-    return A.contiguous(), cnormal(n)
-
-
-def time_ms(fn, reps=20):
-    """Median device time of ``reps`` synchronised calls, timed with CUDA
-    events. Before each call the card is kept busy for about a millisecond
-    (``torch.cuda._sleep``), so that the host's launch overhead is spent
-    while the card is busy and the events bracket device work only."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
-def bound_ms(nbytes, flops, peak_flops):
-    """The least time of the work on the card: the larger of its bytes over
-    the HBM rate and its operations over the peak rate; and which bounds."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_kernel(residual, shape, dtype, device, gen):
@@ -372,19 +323,6 @@ def solve_and_check(maus_tpu_torch, residual, A, b, label):
                 num_distinct=rep.num_distinct, reported=reported,
                 independent=independent, launches=launches,
                 cond_estimate=rep.knowledge.cond_estimate)
-
-
-def eig_operand(n, seed, device):
-    """A = (G₁ + iG₂)/√N with G₁, G₂ standard normal, complex64, built on the
-    card from a seeded torch.Generator: the JAX package's general eig probe
-    operand (benchmarks/spectral_large_probe.py, _device_operand)."""
-    import torch
-
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    re = torch.randn(n, n, generator=g, dtype=torch.float32, device=device)
-    im = torch.randn(n, n, generator=g, dtype=torch.float32, device=device)
-    return (torch.complex(re, im) / math.sqrt(n)).contiguous()
 
 
 def shifted_residual(H, shifts, W, B):
@@ -507,24 +445,6 @@ def eig_and_check(maus_tpu_torch, hess_solve, A, label, hermitian=False):
     return out
 
 
-def hermitian_operand(n, seed, device):
-    """A = (G + Gᴴ)/2 with G = (G₁ + iG₂)/√N (eig_operand), complex64: the
-    JAX package's Hermitian eig probe operand
-    (benchmarks/spectral_large_probe.py, _device_operand, kind hermitian)."""
-    G = eig_operand(n, seed, device)
-    return ((G + G.mH) / 2).contiguous()
-
-
-def cnormal(gen, shape, dtype, device):
-    """Standard complex normal entries (unit variance per plane) drawn from
-    ``gen`` on the card."""
-    import torch
-
-    rdt = dtype.to_real()
-    return torch.complex(torch.randn(*shape, generator=gen, dtype=rdt, device=device),
-                         torch.randn(*shape, generator=gen, dtype=rdt, device=device))
-
-
 def check_cgemm(fn, cgemm, a, b, label):
     """A K3 kernel (``fn``: cgemm.cgemm, or PR 3's body cgemm.cgemm_simt)
     against its plain version: max|Δ| ≤ 4·K·ε·max|a|·max|b| (one rounding
@@ -636,33 +556,6 @@ def p4_breakdown(lu, H):
         if us > 0 and m:
             out[m.group(1)] = round(out.get(m.group(1), 0.0) + us / 1e3, 4)
     return out or "not measured"
-
-
-def svd_operand(m, n, top, seed, device):
-    """A = U·diag(σ)·Vᴴ with U (m×n) and V (n×n) Haar (QR of complex
-    Gaussians with the phases of R's diagonal fixed), σ = 0.8^k for k < top
-    and logspace(−2, −4) for the rest: the JAX package's SVD probe operand
-    (benchmarks/spectral_large_probe.py, _svd_operand). Built in complex128
-    on the card from a seeded torch.Generator, so that σ is known to FP64;
-    the solver runs on its complex64 working copy. Returns (A, σ)."""
-    import torch
-
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-
-    def haar(rows, cols):
-        q, r = torch.linalg.qr(cnormal(g, (rows, cols), torch.complex128, device))
-        d = torch.diagonal(r)
-        return q * (d / d.abs())[None, :]
-
-    U = haar(m, n)
-    V = haar(n, n)
-    sig = torch.cat([0.8 ** torch.arange(top, dtype=torch.float64, device=device),
-                     torch.logspace(-2.0, -4.0, n - top, dtype=torch.float64,
-                                    device=device)])
-    A = (U * sig[None, :]) @ V.mH
-    del U, V
-    return A.contiguous(), sig
 
 
 def svd_and_check(maus_tpu_torch, A, sig, label):
@@ -1698,8 +1591,7 @@ def phase16(mesh_iterations):
                 f"{c['plain_resid']:.3e}; backward error {c['berr']:.3e} (bar "
                 f"{c['bar']:g}); max|Δ| {c['max_abs_err']:.3e}")
     K, n = k2_rows, EIG_N
-    k2_bytes = (n * (n + 1) // 2 + n - 1 + K + 2 * K * n) * 8
-    k2["bound_ms"], k2["bound_by"] = bound_ms(k2_bytes, 14 * K * n ** 2, FP32_FLOPS)
+    k2["bound_ms"], k2["bound_by"] = bound_ms(*k2_work(K, n), FP32_FLOPS)
     k2["launches"] = every[0]["eig"]["K2"]
     k2["max_abs_err"] = max(c["max_abs_err"] for c in checks)
     say(16, f"K2 at ({K}, {n}) complex64 on rank 0: kernel {k2['ms']:.4f} ms, "
@@ -1740,6 +1632,131 @@ def phase16(mesh_iterations):
     del A, b, b64
     torch.cuda.empty_cache()
     return k2
+
+
+
+# the measuring programs (phase 17), each run as its own process on the card
+# as a user runs it: the command line, and what each line must carry (the
+# JAX program's keys, plus the device)
+BENCH_PROGRAMS = (
+    ("bench", ["maus_tpu_torch", "bench"]),
+    ("throughput", ["maus_tpu_torch.benchmarks.throughput"]),
+    ("spectral_large", ["maus_tpu_torch.benchmarks.spectral_large", "--sizes",
+                        str(EIG_N)]),
+    ("eig_paths", ["maus_tpu_torch.benchmarks.eig_paths"]),
+    ("solve16k", ["maus_tpu_torch.benchmarks.solve16k"]),
+    ("age", ["maus_tpu_torch.benchmarks.age"]),
+)
+BENCH_KEYS = {
+    "bench": {"metric", "value", "unit", "vs_baseline", "solves_per_s",
+              "iterations", "achieved_rel", "k1_launches", "peak_gib", "layers",
+              "mfu", "device"},
+    "throughput": {"metric", "value", "unit", "vs_baseline", "device"},
+    "spectral_large": {"metric", "time_s", "num_distinct", "target", "n_at_tol",
+                       "iterations", "max_resid", "resid_top_target",
+                       "hbm_peak_gb", "timings", "launches", "device"},
+    "eig_paths": {"n", "cands", "target", "direct_hessenberg",
+                  "jacobi_davidson_gmres", "jd_over_direct", "device"},
+    "solve16k": {"metric", "value", "unit", "vs_baseline", "iters",
+                 "scipy_per_solve_modeled_s", "achieved_rel", "peak_gib",
+                 "device"},
+    "age": {"metric", "time_s", "device"},
+}
+SCORECARD_KEYS = {"shape", "time_s", "gflops", "mfu", "sol_frac"}
+# the scorecard's kernel times against the same kernels' in phases 2 and 5
+SCORECARD_AGREE = 0.10
+SOL_FRAC_MAX = 1.05
+
+
+def phase17(k1_ms, k2_ms, age_library):
+    """The measuring programs on the card: each module of
+    maus_tpu_torch/benchmarks/ run as a user runs it (``python -m``), every
+    line parsed and held to its keys, to this card, and to what phases 2-14
+    measured: the headline and 16384² solves certified ≤ TOL, ≥ EIG_TARGETS
+    distinct at tol on the eig and SVD rows, the scorecard's K1 and K2
+    within SCORECARD_AGREE of phases 2 and 5 (``k1_ms``, ``k2_ms``) and no
+    sol_frac above SOL_FRAC_MAX, the direct eig branch at its target, the
+    AGE 5×20 library as phase 14's (``age_library``) and the scenarios 4/4.
+    Returns the lines by program."""
+    import torch
+
+    kind = torch.cuda.get_device_name(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    lines = {}
+    for name, args in BENCH_PROGRAMS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
+        for row in rows:
+            say(17, f"{name}: {json.dumps(row)}")
+        say(17, f"python -m {' '.join(args)}: exit code {proc.returncode}, "
+                f"{len(rows)} lines, {time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0 or not rows:
+            raise AssertionError(f"{name}: exit code {proc.returncode}, stderr "
+                                 f"{proc.stderr[-3000:]}")
+        for row in rows:
+            missing = BENCH_KEYS[name] - set(row)
+            if missing:
+                raise AssertionError(f"{name}: a line lacks {sorted(missing)}")
+            dev = row["device"]
+            if dev["platform"] != "gpu" or dev["kind"] != kind or dev["count"] < 1:
+                raise AssertionError(f"{name}: ran on {dev}, not on {kind}")
+        lines[name] = rows
+
+    bench, = lines["bench"]
+    big, = lines["solve16k"]
+    for label, row in (("bench", bench), ("solve16k", big)):
+        if not (row["achieved_rel"] <= TOL and "MISS" not in row["metric"]):
+            raise AssertionError(f"{label}: achieved_rel {row['achieved_rel']:.3e}")
+    kernels = bench["mfu"]["kernels"]
+    for kname, row in kernels.items():
+        want = SCORECARD_KEYS if row["unit"] != "HBM" else \
+            SCORECARD_KEYS - {"gflops", "mfu"} | {"gbs"}
+        if not want <= set(row):
+            raise AssertionError(f"scorecard {kname}: keys {sorted(row)}")
+        if row["sol_frac"] is None or row["sol_frac"] > SOL_FRAC_MAX:
+            raise AssertionError(f"scorecard {kname}: sol_frac {row['sol_frac']}")
+    for kname, ms in (("true_residual", k1_ms),
+                      ("hessenberg_shifted_solve_eig_path", k2_ms)):
+        got = kernels[kname]["time_s"] * 1e3
+        say(17, f"scorecard {kname}: {got:.4f} ms; the same kernel in this "
+                f"run's phase {2 if kname == 'true_residual' else 5}: {ms:.4f} ms "
+                f"({100 * (got / ms - 1):+.1f}%)")
+        if abs(got / ms - 1) > SCORECARD_AGREE:
+            raise AssertionError(f"scorecard {kname} {got:.4f} ms against "
+                                 f"{ms:.4f} ms")
+    layers = bench["layers"]
+    say(17, f"headline {HEADLINE_N}²: {bench['value']:.4f} s = init "
+            f"{layers['init_s']:.4f} + engine {layers['engine_s']:.4f} + refine "
+            f"{layers['refine_s']:.4f} + other {layers['other_s']:.4f} s; "
+            f"{bench['iterations']} iterations, K1 {bench['k1_launches']}")
+    for row in lines["spectral_large"]:
+        tol = SVD_TOL if row["metric"].startswith("svd") else TOL
+        if row["num_distinct"] < EIG_TARGETS or row["n_at_tol"] < EIG_TARGETS \
+                or row["resid_top_target"] > tol:
+            raise AssertionError(f"{row['metric']}: {row['num_distinct']} distinct, "
+                                 f"{row['n_at_tol']} at tol {tol:g}")
+    if len(lines["spectral_large"]) != 3:
+        raise AssertionError("spectral_large: want the general, Hermitian and "
+                             "SVD rows")
+    paths, = lines["eig_paths"]
+    if paths["direct_hessenberg"]["distinct"] < paths["target"]:
+        raise AssertionError(f"eig_paths: the direct branch reached "
+                             f"{paths['direct_hessenberg']}")
+    jd = paths["jacobi_davidson_gmres"]
+    say(17, f"eig_paths: Jacobi–Davidson {jd['distinct']}/{paths['target']} "
+            f"distinct in {jd['iters']} iterations, min residual "
+            f"{jd['min_res']:.3e}, {jd['s']:.3f} s; direct "
+            f"{paths['direct_hessenberg']['distinct']} in "
+            f"{paths['direct_hessenberg']['iters']}, "
+            f"{paths['direct_hessenberg']['s']:.3f} s")
+    parity, _, suite = lines["age"]
+    if parity["library"] != age_library or suite["passed"] != "4/4":
+        raise AssertionError(f"age: library {parity['library']} (phase 14: "
+                             f"{age_library}), scenarios {suite['passed']}")
+    return lines
 
 
 def main():
@@ -1813,8 +1830,8 @@ def main():
             A, x, b = ops
             ms = time_ms(lambda: residual.true_residual(A, x, b))
             plain_ms = time_ms(lambda: residual.true_residual_plain(A, x, b))
-            nbytes = A.numel() * A.element_size() + (x.numel() + 2 * b.numel()) * 16
-            b_ms, b_by = bound_ms(nbytes, 8 * A.numel(), FP64_FLOPS)
+            nbytes, flops = k1_work(*shape, dtype)
+            b_ms, b_by = bound_ms(nbytes, flops, FP64_FLOPS)
             line += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
                      f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s), "
                      f"bound {b_ms:.4f} ms ({b_by})")
@@ -1824,7 +1841,7 @@ def main():
                 line += f", torch.addmv {library_ms:.4f} ms"
             kernel_rows[dtype] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                       library_ms=library_ms, nbytes=nbytes,
-                                      flops=8 * A.numel())
+                                      flops=flops)
         say(2, line)
         del ops
     torch.cuda.empty_cache()
@@ -2075,11 +2092,9 @@ def main():
     hess_solve.hess_solve(H, shifts, B)
     torch.cuda.synchronize()
     k2_extra = torch.cuda.max_memory_allocated() - base
-    # the function's least work: read H's upper Hessenberg part, shifts and
-    # B once, write W once; ~14·N² flops per candidate (10·N² in the sweep,
-    # 4·N² in the back substitution)
-    k2_bytes = (EIG_N * (EIG_N + 1) // 2 + EIG_N - 1 + K + 2 * K * EIG_N) * 8
-    k2_flops = 14 * K * EIG_N ** 2
+    # the function's least work (common.k2_work): read H's upper Hessenberg
+    # part, shifts and B once, write W once; ~14·N² flops per candidate
+    k2_bytes, k2_flops = k2_work(K, EIG_N)
     k2_bound, k2_by = bound_ms(k2_bytes, k2_flops, FP32_FLOPS)
     k2_bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     floor_ms = floor_us * (EIG_N - 1) / 1e3
@@ -2680,7 +2695,7 @@ def main():
 
     # ---- phase 14: KAIROSAGE on the card -------------------------------------
     t0 = time.perf_counter()
-    phase14(dev)
+    age = phase14(dev)
     say(14, f"KAIROSAGE: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 15: the mesh paths, two ranks sharing the card ---------------
@@ -2693,6 +2708,12 @@ def main():
     k2r = phase16(mesh_iterations)
     say(16, f"the candidate axis over replica ranks: "
             f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 17: the measuring programs on the card ------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase17(kernel_rows[torch.complex64]["ms"], k2_ms, age["library"][-1])
+    say(17, f"the measuring programs: {time.perf_counter() - t0:.1f} s")
 
     k3u = update_rows[SVD_N]
     k64 = kernel_rows[torch.complex64]

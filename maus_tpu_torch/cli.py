@@ -10,6 +10,8 @@ arguments, defaults, output lines and exit codes.
     python -m maus_tpu_torch solve --checkpoint c.npz --checkpoint-every 2
     python -m maus_tpu_torch solve --resume-from c.npz
     python -m maus_tpu_torch age --cycles 5     # KAIROSAGE genesis cycles
+    python -m maus_tpu_torch bench              # the headline solve, 4096²
+    python -m maus_tpu_torch --cpu bench --quick --n 64
     python -m maus_tpu_torch solve --n 256 --mesh-model 2   # over 2 ranks
     python -m maus_tpu_torch --cpu --cpu-devices 2 solve --mesh-model 2
 
@@ -20,8 +22,12 @@ column-sharded: NCCL with a card per rank, or ``--backend gloo`` for ranks
 that share a card. ``--cpu --cpu-devices N`` runs N ranks on the CPU over
 gloo (a (N/M, M) mesh). No backend is chosen for the caller: ``--cpu
 --mesh-model M`` without ``--cpu-devices`` or ``--backend gloo`` raises the
-library's ``ValueError``. Every solver subcommand exits 0 when the run
-reached its target, else 1; ``age`` exits 0.
+library's ``ValueError``. ``bench`` runs the port's headline benchmark
+(``benchmarks/headline.py``, the counterpart of the repo's ``bench.py``: the
+4096² κ = 1e6 complex64 solve to 1e-8 with the kernel scorecard; ``--quick``
+at 512² without it) and prints its JSON line; with ``--cpu`` it runs on the
+CPU, still in complex64. Every solver subcommand and ``bench`` exit 0 when
+the run reached its target, else 1; ``age`` exits 0.
 """
 from __future__ import annotations
 
@@ -149,6 +155,16 @@ def cmd_scenarios(args):
     return 0 if ok_all else 1
 
 
+def cmd_bench(args):
+    """The headline benchmark, on the card or with ``--cpu`` on the CPU."""
+    from .benchmarks import headline
+
+    argv = ["--quick"] if args.quick else []
+    if args.n is not None:
+        argv += ["--n", str(args.n)]
+    return headline.main(argv, device=args.device)
+
+
 def cmd_age(args):
     from .age import AgeConfig, GenesisEngine, IslandAGE
 
@@ -229,6 +245,12 @@ def main(argv=None):
 
     p = sub.add_parser("scenarios")
     p.set_defaults(fn=cmd_scenarios)
+
+    p = sub.add_parser("bench")
+    p.add_argument("--quick", action="store_true",
+                   help="N=512, without the kernel scorecard")
+    p.add_argument("--n", type=int, default=None)
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("age")
     p.add_argument("--cycles", type=int, default=5)

@@ -55,11 +55,11 @@ def test_solve_exit_code_follows_convergence(capsys):
 
 
 def test_parser_has_only_the_ported_subcommands(monkeypatch):
-    """``age``, the checkpoint flags and the mesh flags (``--mesh-model``,
-    ``--cpu-devices``, ``--backend``) are ported; ``bench`` (the port's
-    benchmark) is not. ``--cpu-devices`` needs ``--cpu`` and runs gloo
-    ranks, so it refuses ``--backend nccl``."""
-    for argv in (["bench"], ["--cpu-devices", "2", "scenarios"],
+    """``age``, ``bench``, the checkpoint flags and the mesh flags
+    (``--mesh-model``, ``--cpu-devices``, ``--backend``) are ported.
+    ``--cpu-devices`` needs ``--cpu`` and runs gloo ranks, so it refuses
+    ``--backend nccl``."""
+    for argv in (["--cpu-devices", "2", "scenarios"],
                  ["--cpu", "--cpu-devices", "2", "--backend", "nccl", "solve"]):
         with pytest.raises(SystemExit):
             cli.main(argv)
@@ -107,4 +107,17 @@ def test_module_entry_point():
     out = subprocess.run([sys.executable, "-m", "maus_tpu_torch", "--help"],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    assert "{solve,eig,svd,scenarios,age}" in out.stdout
+    assert "{solve,eig,svd,scenarios,bench,age}" in out.stdout
+
+
+def test_bench_runs_the_headline_on_the_cpu(capsys):
+    """``--cpu bench --quick --n 64``: the port's headline benchmark
+    (``benchmarks/headline.py``) in complex64 on the CPU, its one JSON line
+    with ``bench.py``'s keys, certified to 1e-8, exit code 0."""
+    import json
+
+    assert cli.main(["--cpu", "bench", "--quick", "--n", "64"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"metric", "value", "unit", "vs_baseline", "solves_per_s"} <= set(line)
+    assert line["metric"].startswith("time_to_tol(1e-08) N=64 illcond(k=1e+06) pop=16")
+    assert line["achieved_rel"] <= 1e-8 and line["device"]["platform"] == "cpu"

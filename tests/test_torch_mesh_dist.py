@@ -448,22 +448,22 @@ if __name__ == "__main__":
 def test_launch_joins_the_torchrun_group(tmp_path):
     """Under ``torchrun`` (``WORLD_SIZE`` set) ``launch.run`` joins the
     environment's group instead of spawning, and each rank gets its own
-    result; the ranks' all_reduce sums over both."""
+    result; the ranks' all_reduce sums over both. ``--standalone`` lets
+    torchrun bind its own store on a port the system assigns and hand that
+    port to the workers: a port picked here and released before torchrun
+    binds it can be taken meanwhile by another process's connection (under
+    parallel test workers it was, as EADDRINUSE)."""
     import os
-    import socket
     import subprocess
     import sys
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     script = tmp_path / "torchrun_body.py"
     script.write_text(_TORCHRUN_SCRIPT)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo)
     out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-         "--master-addr", "127.0.0.1", "--master-port", str(port), str(script),
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--local-addr", "127.0.0.1", "--nproc-per-node", "2", str(script),
          str(tmp_path)], capture_output=True, text=True, timeout=180, env=env)
     assert out.returncode == 0, out.stderr[-2000:]
     assert [(tmp_path / f"rank{r}.txt").read_text() for r in (0, 1)] == \
