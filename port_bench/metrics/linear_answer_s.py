@@ -1,0 +1,7 @@
+"""The window's seconds over the linear answers completed in it (host clock;
+a request that missed its target adds its time and no answer)."""
+from port_bench import readers
+
+
+def read(run):
+    return readers.seconds_per_answer(run)
