@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ..utils.metrics import span
 from .batched_solve import solve_any
 from .gmres import gmres_batched
 from .kernels.residual import true_residual
@@ -68,10 +69,11 @@ def refine_split(A: torch.Tensor, fac, b: torch.Tensor, x0: torch.Tensor,
         prev, it = math.inf, 0
         # push past the certify target by 4×: the carried estimate drifts
         while it < INNER and rel > 0.25 * tol and rel <= 0.9 * prev:
-            d = solve_any(fac, r64.to(x0.dtype))
-            x_new = x64 + d.to(C128)
-            r_new = r64 - (Ac @ d).to(C128)
-            rel_new = _norm(r_new) / bnorm
+            with span("maus.refine.step"):
+                d = solve_any(fac, r64.to(x0.dtype))
+                x_new = x64 + d.to(C128)
+                r_new = r64 - (Ac @ d).to(C128)
+                rel_new = _norm(r_new) / bnorm
             if rel_new < rel:          # keep the better iterate and its residual
                 x64, r64 = x_new, r_new
             prev, rel = rel, _min_nan(rel_new, rel)

@@ -45,6 +45,7 @@ from ..parallel.dist_refine import (dist_refine_eigenpairs, dist_refine_svd,
 from ..parallel.mesh import MODEL_AXIS
 from ..parallel.placement import place_operands
 from ..utils.checkpoint import load_state, save_state
+from ..utils.metrics import span
 from ..utils.precision import full_precision
 from . import evolve as evolve_mod
 from . import strategy as strat_mod
@@ -261,48 +262,49 @@ class MausSolver:
                  config: Optional[SolverConfig] = None, seed: int = 0,
                  knowledge: Optional[ProblemKnowledge] = None,
                  target_solutions: Optional[int] = None, device=None):
-        problem_type = ProblemType(problem_type)
-        linear = problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
-        if linear and b_vector is None:
-            raise ValueError("SOLVE_LINEAR_SYSTEM requires b_vector")
-        self.device = _resolve_device(matrix, device)
-        compute_dtype = config.dtype if config is not None else \
-            (C128 if self.device.type == "cpu" else torch.complex64)
-        A_work = self._set_operand(matrix, compute_dtype, problem_type, knowledge)
-        m, n = self.knowledge.shape
+        with span("maus.entry"):
+            problem_type = ProblemType(problem_type)
+            linear = problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
+            if linear and b_vector is None:
+                raise ValueError("SOLVE_LINEAR_SYSTEM requires b_vector")
+            self.device = _resolve_device(matrix, device)
+            compute_dtype = config.dtype if config is not None else \
+                (C128 if self.device.type == "cpu" else torch.complex64)
+            A_work = self._set_operand(matrix, compute_dtype, problem_type, knowledge)
+            m, n = self.knowledge.shape
 
-        if config is None:
-            if initial_num_candidates is None:
-                initial_num_candidates = min(3 * max(m, n), 64)
-            floor = convergence_floor(compute_dtype, self.knowledge.cond_estimate) \
-                if linear else eig_convergence_floor(compute_dtype, max(m, n))
-            config = SolverConfig(
-                problem_type=problem_type,
-                num_candidates=int(initial_num_candidates),
-                tol=float(global_convergence_tol), dtype=compute_dtype,
-                convergence_floor=floor)
-        else:
-            config = dataclasses.replace(
-                config, problem_type=problem_type,
-                tol=float(global_convergence_tol) if global_convergence_tol != 1e-8
-                else config.tol)
-            if initial_num_candidates is not None:
+            if config is None:
+                if initial_num_candidates is None:
+                    initial_num_candidates = min(3 * max(m, n), 64)
+                floor = convergence_floor(compute_dtype, self.knowledge.cond_estimate) \
+                    if linear else eig_convergence_floor(compute_dtype, max(m, n))
+                config = SolverConfig(
+                    problem_type=problem_type,
+                    num_candidates=int(initial_num_candidates),
+                    tol=float(global_convergence_tol), dtype=compute_dtype,
+                    convergence_floor=floor)
+            else:
                 config = dataclasses.replace(
-                    config, num_candidates=int(initial_num_candidates))
-        if target_solutions is not None:
-            config = dataclasses.replace(config,
-                                         target_num_solutions=int(target_solutions))
-        self.config = config
-        self.target_solutions = min(default_target_solutions(config, self.knowledge),
-                                    config.num_candidates)
-        self.A = A_work if A_work.dtype == config.dtype else \
-            self.A_true.to(config.dtype).contiguous()
-        self.b = self.b_true = None
-        if linear:
-            self.b, self.b_true = _stage_rhs(b_vector, n, config.dtype, self.device)
-        self._seed = int(seed)
-        self._fac_cache = None
-        self._A64 = None
+                    config, problem_type=problem_type,
+                    tol=float(global_convergence_tol) if global_convergence_tol != 1e-8
+                    else config.tol)
+                if initial_num_candidates is not None:
+                    config = dataclasses.replace(
+                        config, num_candidates=int(initial_num_candidates))
+            if target_solutions is not None:
+                config = dataclasses.replace(config,
+                                             target_num_solutions=int(target_solutions))
+            self.config = config
+            self.target_solutions = min(
+                default_target_solutions(config, self.knowledge), config.num_candidates)
+            self.A = A_work if A_work.dtype == config.dtype else \
+                self.A_true.to(config.dtype).contiguous()
+            self.b = self.b_true = None
+            if linear:
+                self.b, self.b_true = _stage_rhs(b_vector, n, config.dtype, self.device)
+            self._seed = int(seed)
+            self._fac_cache = None
+            self._A64 = None
 
     def _set_operand(self, matrix, compute_dtype: torch.dtype,
                      problem_type: ProblemType,
@@ -330,16 +332,18 @@ class MausSolver:
         linear system's b must have the operand's length (ValueError); other
         problems take no b and ignore one. The cached factorization is
         dropped either way."""
-        cfg = self.config
-        if matrix is not None:
-            self.A = self._set_operand(matrix, cfg.dtype, cfg.problem_type)
-            self.target_solutions = min(
-                default_target_solutions(cfg, self.knowledge), cfg.num_candidates)
-            self._A64 = None
-        if b_vector is not None and cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM:
-            self.b, self.b_true = _stage_rhs(b_vector, self.knowledge.shape[-1],
-                                             cfg.dtype, self.device)
-        self._fac_cache = None
+        with span("maus.entry"):
+            cfg = self.config
+            if matrix is not None:
+                self.A = self._set_operand(matrix, cfg.dtype, cfg.problem_type)
+                self.target_solutions = min(
+                    default_target_solutions(cfg, self.knowledge), cfg.num_candidates)
+                self._A64 = None
+            linear = cfg.problem_type == ProblemType.SOLVE_LINEAR_SYSTEM
+            if b_vector is not None and linear:
+                self.b, self.b_true = _stage_rhs(b_vector, self.knowledge.shape[-1],
+                                                 cfg.dtype, self.device)
+            self._fac_cache = None
 
     def evolve(self, max_iterations: int = 100, collect_metrics: bool = False,
                checkpoint_path: Optional[str] = None,
@@ -373,67 +377,70 @@ class MausSolver:
         cfg, kn = self.config, self.knowledge
         timings = {}
         with full_precision():
-            t0 = time.perf_counter()
-            caches = evolve_mod._setup_caches(cfg, kn, self.A)
-            _sync(self.device)
-            timings["setup_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            carry = None if resume_from is None else \
-                self._load_resume_carry(resume_from, reopen)
-            every = max(max_iterations, 1) if checkpoint_every is None \
-                else int(checkpoint_every)
-            carry, metrics = self._evolve_chunked(
-                max_iterations, collect_metrics, checkpoint_path, every, carry,
-                caches)
-            del caches
-            if checkpoint_path is not None:
-                save_state(checkpoint_path, carry)
-            _sync(self.device)
-            timings["engine_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            pop, strat = carry.pop, carry.strat
-            if cfg.problem_type == ProblemType.SVD:
-                # the run's last view of the effective rank, re-derived from
-                # the converged σ spectrum, supersedes the initial estimate
-                self.target_solutions = int(strat.target_dynamic)
-            diag = strat_mod.compute_diagnostics(cfg, pop, strat,
-                                                 self.target_solutions)
-            leader = diag.distinct_leader.cpu().numpy()
-            residual = pop.residual.cpu().numpy().astype(np.float64)
-            order = np.argsort(np.where(np.isfinite(residual), residual, np.inf))
-            leader_ks = [int(k) for k in order if leader[k]]
-            solutions, residuals = [], []
-            if cfg.problem_type == ProblemType.EIGENVALUE:
-                lam = pop.lam.cpu().numpy()
-                v = pop.v.cpu().numpy()
-                refined = self._refine_spectral(leader_ks, pop.lam, pop.v,
-                                                residual) \
-                    if cfg.refine and leader_ks else {}
-                for k in leader_ks:
-                    lam_k, v_k, r_k = refined.get(
-                        k, (complex(lam[k]), v[k], float(residual[k])))
-                    solutions.append((lam_k, v_k))
-                    residuals.append(r_k)
-            elif cfg.problem_type == ProblemType.SVD:
-                sig = pop.lam.real.cpu().numpy()
-                u, v = pop.u.cpu().numpy(), pop.v.cpu().numpy()
-                refined = self._refine_svd(leader_ks, pop, residual) \
-                    if cfg.refine and leader_ks else {}
-                for k in leader_ks:
-                    s_k, u_k, v_k, r_k = refined.get(
-                        k, (float(sig[k]), u[k], v[k], float(residual[k])))
-                    solutions.append((s_k, u_k, v_k))
-                    residuals.append(r_k)
-            else:
-                self._maybe_reuse_factors(carry)
-                for k in leader_ks:
-                    xk, rel = pop.v[k], float(residual[k])
-                    if cfg.refine:
-                        xk, rel = self._refine_linear(xk)
-                    solutions.append((xk.cpu().numpy(),))
-                    residuals.append(rel)
-            _sync(self.device)
-            timings["finish_s"] = time.perf_counter() - t0
+            with span("maus.setup"):
+                t0 = time.perf_counter()
+                caches = evolve_mod._setup_caches(cfg, kn, self.A)
+                _sync(self.device)
+                timings["setup_s"] = time.perf_counter() - t0
+            with span("maus.engine"):
+                t0 = time.perf_counter()
+                carry = None if resume_from is None else \
+                    self._load_resume_carry(resume_from, reopen)
+                every = max(max_iterations, 1) if checkpoint_every is None \
+                    else int(checkpoint_every)
+                carry, metrics = self._evolve_chunked(
+                    max_iterations, collect_metrics, checkpoint_path, every, carry,
+                    caches)
+                del caches
+                if checkpoint_path is not None:
+                    save_state(checkpoint_path, carry)
+                _sync(self.device)
+                timings["engine_s"] = time.perf_counter() - t0
+            with span("maus.finish"):
+                t0 = time.perf_counter()
+                pop, strat = carry.pop, carry.strat
+                if cfg.problem_type == ProblemType.SVD:
+                    # the run's last view of the effective rank, re-derived from
+                    # the converged σ spectrum, supersedes the initial estimate
+                    self.target_solutions = int(strat.target_dynamic)
+                diag = strat_mod.compute_diagnostics(cfg, pop, strat,
+                                                     self.target_solutions)
+                leader = diag.distinct_leader.cpu().numpy()
+                residual = pop.residual.cpu().numpy().astype(np.float64)
+                order = np.argsort(np.where(np.isfinite(residual), residual, np.inf))
+                leader_ks = [int(k) for k in order if leader[k]]
+                solutions, residuals = [], []
+                if cfg.problem_type == ProblemType.EIGENVALUE:
+                    lam = pop.lam.cpu().numpy()
+                    v = pop.v.cpu().numpy()
+                    refined = self._refine_spectral(leader_ks, pop.lam, pop.v,
+                                                    residual) \
+                        if cfg.refine and leader_ks else {}
+                    for k in leader_ks:
+                        lam_k, v_k, r_k = refined.get(
+                            k, (complex(lam[k]), v[k], float(residual[k])))
+                        solutions.append((lam_k, v_k))
+                        residuals.append(r_k)
+                elif cfg.problem_type == ProblemType.SVD:
+                    sig = pop.lam.real.cpu().numpy()
+                    u, v = pop.u.cpu().numpy(), pop.v.cpu().numpy()
+                    refined = self._refine_svd(leader_ks, pop, residual) \
+                        if cfg.refine and leader_ks else {}
+                    for k in leader_ks:
+                        s_k, u_k, v_k, r_k = refined.get(
+                            k, (float(sig[k]), u[k], v[k], float(residual[k])))
+                        solutions.append((s_k, u_k, v_k))
+                        residuals.append(r_k)
+                else:
+                    self._maybe_reuse_factors(carry)
+                    for k in leader_ks:
+                        xk, rel = pop.v[k], float(residual[k])
+                        if cfg.refine:
+                            xk, rel = self._refine_linear(xk)
+                        solutions.append((xk.cpu().numpy(),))
+                        residuals.append(rel)
+                _sync(self.device)
+                timings["finish_s"] = time.perf_counter() - t0
         solutions, residuals = _final_dedup(cfg, solutions, residuals)
         return SolutionReport(
             problem_type=cfg.problem_type, solutions=solutions,
@@ -445,11 +452,8 @@ class MausSolver:
     def _evolve_chunked(self, max_iterations: int, collect_metrics: bool,
                         checkpoint_path: str, every: int, carry, caches):
         """:func:`_drive_chunked` on this solver's problem."""
-        cfg = self.config
-        if carry is None:
-            carry = evolve_mod.init_carry(cfg, self.knowledge, self.A, self._seed)
         return _drive_chunked(
-            cfg, self.knowledge, self.A, self.b, self._seed,
+            self.config, self.knowledge, self.A, self.b, self._seed,
             self.target_solutions, max_iterations, collect_metrics, every,
             carry, caches,
             lambda c: save_state(checkpoint_path, c))
@@ -492,14 +496,16 @@ class MausSolver:
         Plain IR first; GMRES-IR when plain IR stalls above tol."""
         cfg = self.config
         if self._fac_cache is None:
-            self._fac_cache = shared_factor_qr(self.A, cfg.psi_base)
+            with span("maus.factor"):
+                self._fac_cache = shared_factor_qr(self.A, cfg.psi_base)
         x = x.to(cfg.dtype)
         xs, rel = refine_split(self.A_true, self._fac_cache, self.b_true, x,
                                steps=cfg.max_refine_steps, tol=cfg.tol * 0.3)
         if rel > cfg.tol:
-            xs2, rel2 = refine_gmres(self.A_true, self._fac_cache, self.b_true,
-                                     xs.to(cfg.dtype), steps=cfg.max_refine_steps,
-                                     tol=cfg.tol * 0.3)
+            with span("maus.refine.gmres"):
+                xs2, rel2 = refine_gmres(self.A_true, self._fac_cache, self.b_true,
+                                         xs.to(cfg.dtype), steps=cfg.max_refine_steps,
+                                         tol=cfg.tol * 0.3)
             if rel2 < rel:
                 xs, rel = xs2, rel2
         return xs, rel
@@ -590,7 +596,9 @@ def _drive_chunked(cfg: SolverConfig, kn: ProblemKnowledge, A, b, seed: int,
     without ``checkpoint_every``), ``save(carry)`` at each chunk's end but
     the last (which the caller saves). The chunks stop where one loop
     stops: the same stop condition is read after each (an SVD's against its
-    dynamic target). Returns ``(carry, stacked metrics or None)``."""
+    dynamic target). A ``carry`` of None starts a fresh one, which the first
+    chunk's loop builds (``evolve._loop``). Returns ``(carry, stacked
+    metrics or None)``."""
     def run(bound, with_metrics, carry0):
         args = (cfg, kn, A, b, seed, bound, target)
         kw = dict(carry0=carry0, caches=caches)
@@ -598,10 +606,10 @@ def _drive_chunked(cfg: SolverConfig, kn: ProblemKnowledge, A, b, seed: int,
             return evolve_mod.evolve_metrics(*args, **kw)
         return evolve_mod.evolve_while(*args, **kw), None
 
-    chunks, bound = [], int(carry.iteration)
-    while bound < max_iterations:
-        bound = min(bound + every, max_iterations)
-        begin = int(carry.iteration)
+    chunks, bound = [], 0 if carry is None else int(carry.iteration)
+    while carry is None or bound < max_iterations:
+        # a chunk that did not stop early ends at its bound: the next begins there
+        begin, bound = bound, min(bound + every, max_iterations)
         carry, m = run(bound, collect_metrics, carry)
         if m is not None:   # the rows of the iterations that ran
             ran = int(carry.iteration) - begin
@@ -831,18 +839,19 @@ def _mesh_hosted_drive(cfg, kn, A_op, b, seed, max_iterations, target,
             raise ValueError(f"checkpoint_every must be >= 1, got "
                              f"{checkpoint_every}")
     mesh = A_op.mesh
-    t0 = time.perf_counter()
-    carry = _load_mesh_carry(cfg, kn, A_op, seed, resume_from, reopen) \
-        if resume_from is not None else evolve_mod.init_carry(cfg, kn, A_op, seed)
-    every = max(max_iterations, 1) if checkpoint_every is None \
-        else int(checkpoint_every)
-    carry, metrics = _drive_chunked(
-        cfg, kn, A_op, b, seed, target, max_iterations, collect_metrics, every,
-        carry, caches, lambda c: save_state(checkpoint_path, c, mesh=mesh))
-    if checkpoint_path is not None:
-        save_state(checkpoint_path, carry, mesh=mesh)
-    _sync(A_op.device)
-    return carry, metrics, time.perf_counter() - t0
+    with span("maus.engine"):
+        t0 = time.perf_counter()
+        carry = _load_mesh_carry(cfg, kn, A_op, seed, resume_from, reopen) \
+            if resume_from is not None else None
+        every = max(max_iterations, 1) if checkpoint_every is None \
+            else int(checkpoint_every)
+        carry, metrics = _drive_chunked(
+            cfg, kn, A_op, b, seed, target, max_iterations, collect_metrics, every,
+            carry, caches, lambda c: save_state(checkpoint_path, c, mesh=mesh))
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, carry, mesh=mesh)
+        _sync(A_op.device)
+        return carry, metrics, time.perf_counter() - t0
 
 
 def _shapes(**tensors) -> dict:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.types import RANK_REL_CUT, ProblemKnowledge, ProblemType
+from ..utils.metrics import span
 
 
 def _to_dense_numpy(A) -> np.ndarray:
@@ -95,15 +96,18 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
     def vnorm(z):
         return torch.linalg.vector_norm(z)
 
-    x = torch.complex(torch.randn(n, generator=g, dtype=rdt, device=dev),
-                      torch.randn(n, generator=g, dtype=rdt, device=dev)).to(A.dtype)
-    x = x / vnorm(x)
-    for _ in range(power_iters):
-        z = A.mH @ (A @ x)
-        x = z / torch.clamp_min(vnorm(z), 1e-30)
-    smax = torch.sqrt(vnorm(A.mH @ (A @ x)))
+    with span("maus.diagnose.cond.power"):
+        x = torch.complex(torch.randn(n, generator=g, dtype=rdt, device=dev),
+                          torch.randn(n, generator=g, dtype=rdt, device=dev)
+                          ).to(A.dtype)
+        x = x / vnorm(x)
+        for _ in range(power_iters):
+            z = A.mH @ (A @ x)
+            x = z / torch.clamp_min(vnorm(z), 1e-30)
+        smax = torch.sqrt(vnorm(A.mH @ (A @ x)))
 
-    q, r = torch.linalg.qr(A)
+    with span("maus.diagnose.cond.qr"):
+        q, r = torch.linalg.qr(A)
 
     def qr_solve(b):                    # A x = b
         y = (q.mH @ b[:, None])
@@ -136,26 +140,28 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
             rel = torch.minimum(rel2, rel)
         return xc, rel_first, rel
 
-    y = torch.complex(torch.randn(n, generator=g, dtype=torch.float64, device=dev),
-                      torch.randn(n, generator=g, dtype=torch.float64, device=dev))
-    zero = torch.zeros((), dtype=torch.float64, device=dev)
-    gamp, rel_first, rel_final = zero + 1.0, zero, zero
-    for _ in range(inv_iters):
-        y = y / torch.clamp_min(vnorm(y), 1e-300)
-        u, rf1, rl1 = _ir(y, mv_adj, qr_solve_adj)
-        y, rf2, rl2 = _ir(u, mv, qr_solve)
-        gamp = vnorm(y)
-        # later right-hand sides align with the smallest singular direction,
-        # which maximizes the ε·κ backward-residual signal
-        rel_first = torch.maximum(rel_first, torch.maximum(rf1, rf2))
-        rel_final = torch.maximum(rel_final, torch.maximum(rl1, rl2))
+    with span("maus.diagnose.cond.inverse"):
+        y = torch.complex(torch.randn(n, generator=g, dtype=torch.float64, device=dev),
+                          torch.randn(n, generator=g, dtype=torch.float64, device=dev))
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        gamp, rel_first, rel_final = zero + 1.0, zero, zero
+        for _ in range(inv_iters):
+            y = y / torch.clamp_min(vnorm(y), 1e-300)
+            u, rf1, rl1 = _ir(y, mv_adj, qr_solve_adj)
+            y, rf2, rl2 = _ir(u, mv, qr_solve)
+            gamp = vnorm(y)
+            # later right-hand sides align with the smallest singular
+            # direction, which maximizes the ε·κ backward-residual signal
+            rel_first = torch.maximum(rel_first, torch.maximum(rf1, rf2))
+            rel_final = torch.maximum(rel_final, torch.maximum(rl1, rl2))
     return smax.double(), gamp, rel_first, rel_final
 
 
 def estimate_cond_device(A: torch.Tensor) -> float:
     """Condition estimate computed on the operand's device (one
     working-dtype QR plus O(N²) iterations)."""
-    out = torch.stack(_cond_probe_device(A)).cpu().numpy()
+    with span("maus.diagnose.cond"):
+        out = torch.stack(_cond_probe_device(A)).cpu().numpy()
     smax, g, rel_final = float(out[0]), float(out[1]), float(out[3])
     if not (np.isfinite(smax) and np.isfinite(g)) or g <= 0:
         return np.inf

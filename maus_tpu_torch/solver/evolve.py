@@ -60,6 +60,7 @@ from ..ops.regularize import pow10, psi_magnitude
 from ..parallel.dist_hessenberg import dist_hessenberg, dist_solve_shifted
 from ..parallel.dist_qr import DistQR, dist_qr, dist_qr_solve, panel_block
 from ..parallel.placement import ColumnSharded, fro, trace
+from ..utils.metrics import span
 from . import candidate as cand
 from . import hermitian as herm
 from . import population as popmgmt
@@ -149,10 +150,12 @@ def _refactor(knowledge: ProblemKnowledge, A: torch.Tensor, psi):
     """The shared factorization of A + ψI: ``dist_qr`` of the shifted
     shards for a column-sharded A (panels of ``panel_block`` of the shard
     width), else a Cholesky or a QR on the device."""
-    if isinstance(A, ColumnSharded):
-        return dist_qr(A.mesh, A.shifted(psi), block=panel_block(A.local.shape[1]))
-    return shared_factor_hpd(A, psi) if knowledge.is_positive_definite \
-        else shared_factor_qr(A, psi)
+    with span("maus.factor"):
+        if isinstance(A, ColumnSharded):
+            return dist_qr(A.mesh, A.shifted(psi),
+                           block=panel_block(A.local.shape[1]))
+        return shared_factor_hpd(A, psi) if knowledge.is_positive_definite \
+            else shared_factor_qr(A, psi)
 
 
 def _spectral_moments(A: torch.Tensor):
@@ -361,21 +364,33 @@ def _loop(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,
           target_solutions: int, carry0: Optional[EvolveCarry],
           caches: Optional[Caches], with_metrics: bool):
     """The loop under :func:`evolve_while` and :func:`evolve_metrics`:
-    (last carry, the metrics rows that ran)."""
+    (last carry, the metrics rows that ran). The span ``maus.engine.init``
+    holds the step's set-up, the carry's (unless ``carry0`` is given) and
+    the first stop check, the first host read that waits for them; each
+    ``maus.engine.iteration`` holds one step and the stop check after it."""
     if caches is None:
         caches = _setup_caches(cfg, knowledge, A)
-    step = make_iteration(cfg, knowledge, A, b, target_solutions,
-                          hess_cache=caches.hess, eigh_cache=caches.eigh,
-                          with_metrics=with_metrics)
-    carry = carry0 if carry0 is not None else init_carry(cfg, knowledge, A, seed)
+
+    def done(carry) -> bool:
+        return bool((carry.iteration >= max_iterations) |
+                    _stop_condition(cfg, target_solutions, carry))
+
+    with span("maus.engine.init"):
+        step = make_iteration(cfg, knowledge, A, b, target_solutions,
+                              hess_cache=caches.hess, eigh_cache=caches.eigh,
+                              with_metrics=with_metrics)
+        carry = carry0 if carry0 is not None else \
+            init_carry(cfg, knowledge, A, seed)
+        stop = done(carry)
     rows = []
-    while not bool((carry.iteration >= max_iterations) |
-                   _stop_condition(cfg, target_solutions, carry)):
-        if with_metrics:
-            carry, row = step(carry)
-            rows.append(row)
-        else:
-            carry = step(carry)
+    while not stop:
+        with span("maus.engine.iteration"):
+            if with_metrics:
+                carry, row = step(carry)
+                rows.append(row)
+            else:
+                carry = step(carry)
+            stop = done(carry)
     return carry, rows
 
 

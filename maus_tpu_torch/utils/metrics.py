@@ -4,11 +4,15 @@ Counterpart of ``maus_tpu/utils/metrics.py``. The evolve loop returns its
 per-iteration metrics as stacked arrays (``SolutionReport.metrics`` with
 ``collect_metrics=True``; the names of the JAX package's ``Metrics``); this
 module is the host side: a JSONL sink, a stdlib-logging setup under the
-``maus_tpu_torch`` logger, a wall-clock scope timer, and a device profile
-of a scope through ``torch.profiler``, written as a Chrome trace.
+``maus_tpu_torch`` logger, a wall-clock scope timer, a device profile
+of a scope through ``torch.profiler``, written as a Chrome trace, and the
+named spans (:func:`span`, :data:`SPANS`) that the solver opens at its layer
+boundaries, which that trace shows.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import logging
 import os
@@ -17,6 +21,7 @@ from contextlib import contextmanager
 from typing import IO, Optional
 
 import numpy as np
+import torch
 
 logger = logging.getLogger("maus_tpu_torch")
 
@@ -86,8 +91,8 @@ def timed(name: str, sink: Optional[MetricsSink] = None):
 def profile_trace(log_dir: str):
     """Profile the enclosed scope with ``torch.profiler`` (CPU, and CUDA
     where a card is present) and write a Chrome trace,
-    ``<log_dir>/trace.json`` (chrome://tracing or Perfetto)."""
-    import torch
+    ``<log_dir>/trace.json`` (chrome://tracing or Perfetto); the solver's
+    spans (:data:`SPANS`) appear in it as CPU operations."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -97,3 +102,60 @@ def profile_trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+#: Every span the solver opens, with what it covers. A span that ends where
+#: the host already waits for the device (a synchronisation or a host read)
+#: holds its device work; the others cover the enqueueing alone and serve to
+#: name the device's idle gaps.
+SPANS = (
+    ("maus.entry", "staging, diagnosis and configuration in MausSolver's "
+     "constructor, and update_problem's re-staging; ends at the last "
+     "finiteness read"),
+    ("maus.diagnose.cond", "the on-device condition probe, through its host "
+     "read"),
+    ("maus.diagnose.cond.power", "the probe's power iteration (enqueue only)"),
+    ("maus.diagnose.cond.qr", "the probe's working-dtype QR (enqueue only)"),
+    ("maus.diagnose.cond.inverse", "the probe's inverse iteration with its "
+     "refinement solves (enqueue only)"),
+    ("maus.setup", "evolve's shared Hessenberg form or eigh "
+     "(timings['setup_s'])"),
+    ("maus.engine", "evolve's engine phase (timings['engine_s'])"),
+    ("maus.engine.init", "the step, the carry (population, first Psi, the "
+     "shared factorization) and the first stop check"),
+    ("maus.engine.iteration", "one step and the stop check after it"),
+    ("maus.factor", "one shared factorization of the linear path: the "
+     "engine's at init and on a Psi rung, or refinement's fresh QR (enqueue "
+     "only)"),
+    ("maus.finish", "evolve's finish phase: leaders, finishers, host copies "
+     "(timings['finish_s'])"),
+    ("maus.refine.step", "one correction solve of plain refinement, through "
+     "its residual norm's host read"),
+    ("maus.refine.gmres", "the GMRES-IR fallback of linear refinement"),
+)
+
+_NULL_SPAN = contextlib.nullcontext()
+
+
+@functools.cache
+def _fast_record():
+    """torch's ``_RecordFunctionFast``, or None (with one warning) where the
+    installed torch lacks it."""
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    if fast is None:
+        logger.warning("torch %s has no _RecordFunctionFast; the solver's spans "
+                       "are not recorded", torch.__version__)
+    return fast
+
+
+def span(name: str):
+    """A named span around the enclosed scope while a ``torch.profiler``
+    runs: a plain CPU operation on the profiler's clock
+    (``_RecordFunctionFast``), so that no device-side event of the name is
+    made, as ``record_function``'s user annotations make one. With no
+    profiler running it is one shared null context: nothing is allocated,
+    recorded or synchronised. ``name`` is one of :data:`SPANS`."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL_SPAN
+    fast = _fast_record()
+    return _NULL_SPAN if fast is None else fast(name)

@@ -1,0 +1,208 @@
+"""The solver's named spans (``maus_tpu_torch.utils.metrics.span``) under
+``torch.profiler`` on the CPU.
+
+A tiny complex64 linear solve (the public ``solve``, whose tensor operand
+takes the on-device condition probe, and a ``MausSolver`` given κ, which
+skips it), a tiny general eig, a Hermitian eig and an SVD each run once
+without and once inside a CPU profile. The spans must be plain CPU
+operations (not user annotations, which the profiler mirrors on the device
+timeline), nest as their layers do, count the engine's iterations and the
+linear path's factorizations, and leave every answer bit-equal; with no
+profiler running ``span`` is one shared null context.
+"""
+import logging
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import maus_tpu_torch as maus
+from maus_tpu_torch.problems import generators as gen
+from maus_tpu_torch.solver.api import convergence_floor, eig_convergence_floor
+from maus_tpu_torch.utils import metrics
+
+torch.set_num_threads(1)
+
+C64 = torch.complex64
+COND = 1e4
+
+
+def _linear_operands():
+    A, b = gen.ill_conditioned_system(48, COND)
+    return torch.as_tensor(A).to(C64), torch.as_tensor(b).to(C64)
+
+
+def _linear_config():
+    return maus.SolverConfig(dtype=C64, convergence_floor=convergence_floor(C64, COND))
+
+
+def _solve():
+    A, b = _linear_operands()
+    return maus.solve(A, b, tol=1e-8, num_candidates=8, config=_linear_config(),
+                      device="cpu")
+
+
+def _known_cond():
+    A, b = _linear_operands()
+    kn = maus.ProblemKnowledge(shape=tuple(A.shape), cond_estimate=COND)
+    return maus.MausSolver(A, maus.ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
+                           initial_num_candidates=8, config=_linear_config(), seed=3,
+                           knowledge=kn, device="cpu").evolve(50)
+
+
+def _restaged():
+    A, b = _linear_operands()
+    s = maus.MausSolver(A, maus.ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
+                        initial_num_candidates=8, config=_linear_config(), device="cpu")
+    s.update_problem(b_vector=2 * b)
+    return s.evolve(50)
+
+
+def _eig():
+    E = torch.as_tensor(gen.laplace_like_complex(8, make_hermitian=False)).to(C64)
+    cfg = maus.SolverConfig(dtype=C64, convergence_floor=eig_convergence_floor(C64, 8))
+    return maus.eig(E, tol=1e-7, num_candidates=30, config=cfg, device="cpu")
+
+
+def _eig_hermitian():
+    H = gen.laplace_like_complex(8, make_hermitian=True)
+    return maus.eig(H, tol=1e-7, num_candidates=30, device="cpu")
+
+
+def _svd():
+    return maus.svd(gen.low_rank_svd_matrix(5, 4), tol=1e-6, device="cpu")
+
+
+RUNS = {"solve": _solve, "known_cond": _known_cond, "update_problem": _restaged,
+        "eig": _eig, "eig_hermitian": _eig_hermitian, "svd": _svd}
+LINEAR = ("solve", "known_cond", "update_problem")
+
+# the spans each path runs (the GMRES-IR fallback is not expected on any)
+SHARED = {"maus.entry", "maus.setup", "maus.engine", "maus.engine.init",
+          "maus.engine.iteration", "maus.finish"}
+PROBE = {"maus.diagnose.cond", "maus.diagnose.cond.power", "maus.diagnose.cond.qr",
+         "maus.diagnose.cond.inverse"}
+LINEAR_ONLY = {"maus.factor", "maus.refine.step"}
+EXPECTED = {"solve": SHARED | PROBE | LINEAR_ONLY,
+            "known_cond": SHARED | LINEAR_ONLY,
+            "update_problem": SHARED | PROBE | LINEAR_ONLY,
+            "eig": SHARED | PROBE, "eig_hermitian": SHARED, "svd": SHARED}
+
+_CACHE = {}
+
+
+def _traced(name):
+    """(quiet report, traced report, the traced run's ``maus.*`` events as
+    (name, start ns, end ns, is CPU, is a user annotation))."""
+    if name not in _CACHE:
+        quiet = RUNS[name]()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            traced = RUNS[name]()
+        events = sorted(
+            ((ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns(),
+              ev.device_type() == torch.autograd.DeviceType.CPU,
+              ev.is_user_annotation())
+             for ev in prof.profiler.kineto_results.events()
+             if ev.name().startswith("maus.")), key=lambda e: e[1])
+        _CACHE[name] = (quiet, traced, events)
+    return _CACHE[name]
+
+
+def _spans(events, name):
+    return [(s, e) for n, s, e, _, _ in events if n == name]
+
+
+def _inside(inner, outer) -> bool:
+    return any(s <= inner[0] and inner[1] <= e for s, e in outer)
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_spans_are_cpu_operations_not_user_annotations(run):
+    events = _traced(run)[2]
+    assert events
+    for name, _, _, on_cpu, annotation in events:
+        assert on_cpu and not annotation, name
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_each_span_of_the_path_is_emitted(run):
+    emitted = {e[0] for e in _traced(run)[2]}
+    assert emitted == EXPECTED[run]
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_spans_nest_as_the_layers_do(run):
+    events = _traced(run)[2]
+    sp = {n: _spans(events, n) for n in {e[0] for e in events}}
+    (engine,), (init,) = sp["maus.engine"], sp["maus.engine.init"]
+    (setup,), (finish,) = sp["maus.setup"], sp["maus.finish"]
+    assert setup[1] <= engine[0] and engine[1] <= finish[0]
+    assert _inside(init, [engine])
+    for it in sp["maus.engine.iteration"]:
+        assert _inside(it, [engine]) and init[1] <= it[0]
+    for entry in sp["maus.entry"]:
+        assert entry[1] <= setup[0]
+    for probe in sp.get("maus.diagnose.cond", []):
+        assert _inside(probe, sp["maus.entry"])
+    for stage in PROBE - {"maus.diagnose.cond"}:
+        for s in sp.get(stage, []):
+            assert _inside(s, sp["maus.diagnose.cond"])
+    for step in sp.get("maus.refine.step", []):
+        assert _inside(step, [finish])
+    for fac in sp.get("maus.factor", []):
+        assert _inside(fac, [init] + sp["maus.engine.iteration"] + [finish])
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_iteration_spans_count_the_iterations(run):
+    _, report, events = _traced(run)
+    assert len(_spans(events, "maus.engine.iteration")) == report.iterations >= 1
+    assert len(_spans(events, "maus.engine.init")) == 1
+    if run in LINEAR:
+        assert len(_spans(events, "maus.factor")) >= 1
+        assert len(_spans(events, "maus.refine.step")) >= 1
+    if run == "update_problem":
+        assert len(_spans(events, "maus.entry")) == 2
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_answers_bit_equal_with_and_without_the_profiler(run):
+    quiet, traced, _ = _traced(run)
+    assert quiet.iterations == traced.iterations
+    assert quiet.residuals == traced.residuals
+    assert len(quiet.solutions) == len(traced.solutions) >= 1
+    for a, b in zip(quiet.solutions, traced.solutions):
+        for x, y in zip(a, b):
+            assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_spans_lists_every_name_emitted(run):
+    named = {name for name, _ in metrics.SPANS}
+    assert {e[0] for e in _traced(run)[2]} <= named
+    assert all(doc and "\n" not in doc for _, doc in metrics.SPANS)
+
+
+def test_span_without_a_profiler_is_the_shared_null_context():
+    assert not torch.autograd._profiler_enabled()
+    first = metrics.span("maus.engine")
+    assert first is metrics.span("maus.factor")
+    with first:
+        pass
+
+
+def test_span_without_the_fast_record_is_a_no_op_with_one_warning(monkeypatch, caplog):
+    monkeypatch.delattr(torch._C._profiler, "_RecordFunctionFast")
+    metrics._fast_record.cache_clear()
+    try:
+        with caplog.at_level(logging.WARNING, logger="maus_tpu_torch"), \
+                profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(3):
+                with metrics.span("maus.engine"):
+                    torch.ones(2).sum()
+    finally:
+        metrics._fast_record.cache_clear()
+    names = {ev.name() for ev in prof.profiler.kineto_results.events()}
+    assert not {n for n in names if n.startswith("maus.")}
+    assert len([r for r in caplog.records if "_RecordFunctionFast" in r.message]) == 1
