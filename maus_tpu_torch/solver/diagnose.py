@@ -8,14 +8,19 @@ sketch. The results are plain Python values.
 
 Not carried over: the probe's TPU fallbacks (exact-slicing bf16 matvecs, and
 complex64 IR residuals past the ladder limit with their widened gate) — the
-card has native FP64, so the probe's matvecs are complex128 at any size.
+card has native FP64, so the probe's residuals are FP64 (kernel K1) at any
+size.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.types import RANK_REL_CUT, ProblemKnowledge, ProblemType
+from ..ops.batched_solve import _want_rinv, invert_triangular
+from ..ops.kernels import residual
 from ..utils.metrics import span
 
 
@@ -78,18 +83,28 @@ def estimate_cond(A: np.ndarray, exact_below: int = 512, iters: int = 30) -> flo
 # ---------------------------------------------------------------------------
 
 def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
-                       inv_iters: int = 6, ir_steps: int = 10):
+                       inv_iters: int = 6, ir_steps: int = 10,
+                       with_rinv: Optional[bool] = None):
     """(σ_max, amplification g ≈ 1/σ_min², first-solve backward residual,
     final IR residual) from one working-dtype QR plus O(N²) iterations.
 
     The IR residuals double as a conditioning signal: a backward-stable
     working-dtype solve leaves an FP64-measured relative residual ≈ ε·κ(A),
     which keeps growing past the point where the inverse-power estimate
-    floors at the factorization's accuracy."""
+    floors at the factorization's accuracy.
+
+    The working solves go through an explicit R⁻¹ where ``with_rinv`` holds
+    (default: the engine's gate, a CUDA operand of N ≥ 1024): each is two
+    matrix-vector products in the working dtype, and R is dropped once R⁻¹
+    is built. Elsewhere they are triangular substitutions. Each FP64
+    residual is one K1 read of A, or of one conjugate-transposed copy Aᴴ in
+    the working dtype, and each IR step computes one."""
     n = A.shape[0]
     dev = A.device
     rdt = A.real.dtype
     c128 = torch.complex128
+    if with_rinv is None:
+        with_rinv = _want_rinv(A)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
@@ -109,36 +124,50 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
     with span("maus.diagnose.cond.qr"):
         q, r = torch.linalg.qr(A)
 
-    def qr_solve(b):                    # A x = b
-        y = (q.mH @ b[:, None])
-        return torch.linalg.solve_triangular(r, y, upper=True)[:, 0]
+    if with_rinv:
+        # conj(R⁻¹) is kept, so that every product reads Q, conj(R⁻¹) or a
+        # transposed view of either in place and only vectors are conjugated:
+        # with a conjugated view (``M.mH``) a product or a triangular solve
+        # may conjugate all of M first, and on the card some do (complex128
+        # products among them)
+        with span("maus.diagnose.cond.rinv"):
+            rinv_c = invert_triangular(r).conj_physical_()
+        del r
 
-    def qr_solve_adj(b):                # Aᴴ x = b
-        y = torch.linalg.solve_triangular(r.mH, b[:, None], upper=False)
-        return (q @ y)[:, 0]
+        def qr_solve(b):        # A x = b: x = R⁻¹Qᴴb = conj(conj(R⁻¹)·Qᵀ·conj b)
+            return torch.conj_physical(rinv_c @ (q.T @ torch.conj_physical(b)))
 
-    A64 = A.to(c128)
+        def qr_solve_adj(b):    # Aᴴ x = b: x = Q·R⁻ᴴb = Q·conj(R⁻¹)ᵀ·b
+            return q @ (rinv_c.T @ b)
+    else:
+        def qr_solve(b):                # A x = b
+            y = (q.mH @ b[:, None])
+            return torch.linalg.solve_triangular(r, y, upper=True)[:, 0]
 
-    def mv(z):
-        return A64 @ z
+        def qr_solve_adj(b):            # Aᴴ x = b
+            y = torch.linalg.solve_triangular(r.mH, b[:, None], upper=False)
+            return (q @ y)[:, 0]
 
-    def mv_adj(z):
-        return A64.mH @ z
+    Ah = A.mH.contiguous()
 
-    def _ir(b, matvec, solve):
-        """Solve to FP64 accuracy with the working-dtype factorization;
-        returns (x, rel_first, rel_final)."""
+    def _ir(b, M, solve):
+        """Solve M x = b (M is A or Aᴴ) to FP64 accuracy with the
+        working-dtype factorization, carrying the residual of the kept
+        iterate into the next correction; returns (x, rel_first, rel_final)."""
         bnorm = torch.clamp_min(vnorm(b), 1e-300)
         xc = solve(b.to(A.dtype)).to(c128)
-        rel = vnorm(b - matvec(xc)) / bnorm
-        rel_first = rel
+        rc = residual.true_residual(M, xc, b)
+        nrc = vnorm(rc)
+        rel_first = nrc / bnorm
         for _ in range(ir_steps):
-            d = solve((b - matvec(xc)).to(A.dtype))
-            x2 = xc + d.to(c128)
-            rel2 = vnorm(b - matvec(x2)) / bnorm
-            xc = torch.where(rel2 < rel, x2, xc)
-            rel = torch.minimum(rel2, rel)
-        return xc, rel_first, rel
+            x2 = xc + solve(rc.to(A.dtype))        # added in complex128
+            r2 = residual.true_residual(M, x2, b)
+            nr2 = vnorm(r2)
+            better = nr2 < nrc
+            xc = torch.where(better, x2, xc)
+            rc = torch.where(better, r2, rc)
+            nrc = torch.minimum(nr2, nrc)
+        return xc, rel_first, nrc / bnorm
 
     with span("maus.diagnose.cond.inverse"):
         y = torch.complex(torch.randn(n, generator=g, dtype=torch.float64, device=dev),
@@ -147,8 +176,8 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
         gamp, rel_first, rel_final = zero + 1.0, zero, zero
         for _ in range(inv_iters):
             y = y / torch.clamp_min(vnorm(y), 1e-300)
-            u, rf1, rl1 = _ir(y, mv_adj, qr_solve_adj)
-            y, rf2, rl2 = _ir(u, mv, qr_solve)
+            u, rf1, rl1 = _ir(y, Ah, qr_solve_adj)
+            y, rf2, rl2 = _ir(u, A, qr_solve)
             gamp = vnorm(y)
             # later right-hand sides align with the smallest singular
             # direction, which maximizes the ε·κ backward-residual signal
@@ -157,11 +186,10 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
     return smax.double(), gamp, rel_first, rel_final
 
 
-def estimate_cond_device(A: torch.Tensor) -> float:
-    """Condition estimate computed on the operand's device (one
-    working-dtype QR plus O(N²) iterations)."""
-    with span("maus.diagnose.cond"):
-        out = torch.stack(_cond_probe_device(A)).cpu().numpy()
+def _cond_from_probe(probe) -> float:
+    """The condition estimate from :func:`_cond_probe_device`'s outputs,
+    read to the host."""
+    out = torch.stack(probe).cpu().numpy()
     smax, g, rel_final = float(out[0]), float(out[1]), float(out[3])
     if not (np.isfinite(smax) and np.isfinite(g)) or g <= 0:
         return np.inf
@@ -172,6 +200,13 @@ def estimate_cond_device(A: torch.Tensor) -> float:
     # singular, and the honest answer is ∞ (Critical regime).
     gate = max(1e-6, 100.0 * float(np.finfo(np.float64).eps))
     return cond_lo if rel_final <= gate else np.inf
+
+
+def estimate_cond_device(A: torch.Tensor) -> float:
+    """Condition estimate computed on the operand's device (one
+    working-dtype QR plus O(N²) iterations)."""
+    with span("maus.diagnose.cond"):
+        return _cond_from_probe(_cond_probe_device(A))
 
 
 def _structure_probe(Ad: torch.Tensor):

@@ -116,6 +116,8 @@ SPANS = (
      "read"),
     ("maus.diagnose.cond.power", "the probe's power iteration (enqueue only)"),
     ("maus.diagnose.cond.qr", "the probe's working-dtype QR (enqueue only)"),
+    ("maus.diagnose.cond.rinv", "the probe's explicit R⁻¹ from that QR, built "
+     "on the card for N ≥ 1024 (enqueue only)"),
     ("maus.diagnose.cond.inverse", "the probe's inverse iteration with its "
      "refinement solves (enqueue only)"),
     ("maus.setup", "evolve's shared Hessenberg form or eigh "

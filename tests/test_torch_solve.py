@@ -275,6 +275,46 @@ def test_device_cond_probe(kappa):
         assert exact / 4 <= est <= exact * 4
 
 
+@pytest.mark.parametrize("kappa", [1e2, 1e4, 1e6, 1e13])
+def test_cond_probe_rinv_form_matches_triangular_form(kappa):
+    """The probe's working solves through an explicit R⁻¹ (its form on the
+    card at N ≥ 1024) and by triangular substitution give one estimate:
+    within 1e-4 relative while complex64 IR resolves κ, and ∞ from both at
+    κ = 1e13, past what a complex64 factorization can resolve."""
+    A, _ = gen.ill_conditioned_system(256, kappa, seed=1)
+    At = torch.from_numpy(A.astype(np.complex64))
+    est = [dt._cond_from_probe(dt._cond_probe_device(At, with_rinv=w))
+           for w in (True, False)]
+    if kappa > 1e10:
+        assert est == [np.inf, np.inf]
+    else:
+        assert np.isfinite(est[1])
+        assert est[0] == pytest.approx(est[1], rel=1e-4)
+
+
+@pytest.mark.parametrize("with_rinv", [True, False])
+def test_cond_probe_one_residual_per_iterate(monkeypatch, with_rinv):
+    """Each IR solve of the probe computes 1 + ir_steps FP64 residuals, each
+    through K1's entry on the complex64 operand (no widened copy): at the
+    defaults 6 inverse iterations × 2 solves × 11 = 132 (two products an IR
+    step made 252)."""
+    from maus_tpu_torch.ops.kernels import residual
+
+    seen = []
+    real = residual.true_residual
+
+    def counting(A, x, b):
+        seen.append(A.dtype)
+        return real(A, x, b)
+
+    monkeypatch.setattr(residual, "true_residual", counting)
+    A, _ = gen.ill_conditioned_system(64, 1e4, seed=2)
+    dt._cond_probe_device(torch.from_numpy(A.astype(np.complex64)),
+                          with_rinv=with_rinv)
+    assert len(seen) == 6 * 2 * (1 + 10) == 132
+    assert set(seen) == {torch.complex64}
+
+
 def test_truth_report_matches_jax():
     """utils/truth on the port's report gives what the JAX package's gives."""
     A, b = gen.well_conditioned_system(32, seed=9)

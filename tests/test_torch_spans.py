@@ -184,6 +184,32 @@ def test_spans_lists_every_name_emitted(run):
     assert all(doc and "\n" not in doc for _, doc in metrics.SPANS)
 
 
+@pytest.mark.parametrize("with_rinv", [True, False])
+def test_probe_opens_the_rinv_span_in_its_rinv_form_only(with_rinv):
+    """The probe's explicit R⁻¹ (its form on the card at N ≥ 1024, forced
+    here on the CPU) runs in one declared span ``maus.diagnose.cond.rinv``
+    between the QR and the inverse iteration; the triangular form opens
+    none. The probe never opens the engine's ``maus.factor``."""
+    from maus_tpu_torch.solver import diagnose
+
+    A, _ = _linear_operands()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with metrics.span("maus.diagnose.cond"):
+            diagnose._cond_probe_device(A, with_rinv=with_rinv)
+    events = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.name().startswith("maus.")]
+    sp = {n: [(s, e) for m, s, e in events if m == n] for n, _, _ in events}
+    assert "maus.diagnose.cond.rinv" in {n for n, _ in metrics.SPANS}
+    assert "maus.factor" not in sp
+    rinv = sp.get("maus.diagnose.cond.rinv", [])
+    assert len(rinv) == int(with_rinv)
+    for s, e in rinv:
+        assert _inside((s, e), sp["maus.diagnose.cond"])
+        assert sp["maus.diagnose.cond.qr"][0][1] <= s
+        assert e <= sp["maus.diagnose.cond.inverse"][0][0]
+
+
 def test_span_without_a_profiler_is_the_shared_null_context():
     assert not torch.autograd._profiler_enabled()
     first = metrics.span("maus.engine")
