@@ -27,4 +27,4 @@ def test_cell_on_the_card(cell):
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"] is True, out.stderr[-4000:]
     assert line["device"]["platform"] == "gpu" and line["device"]["count"] == cell["chips"]
-    assert "setup_s" in line["metrics"] and "peak_gib" in line["metrics"]
+    assert set(line["metrics"]) == {"setup_s", "answer_s", "answer_p95_s", "peak_gib"}

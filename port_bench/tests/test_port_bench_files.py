@@ -81,6 +81,22 @@ def test_end_to_end_bounds():
         assert 0.01 <= m["bound"] <= 0.25
 
 
+ANSWER_TIME = {"setup_s", "answer_s", "answer_p95_s", "peak_gib"}
+
+
+def test_end_to_end_metrics_reach_every_cell():
+    """An end-to-end metric names no cells, so a cell of a new configuration
+    is timed without an edit to any entry; a per-layer metric names the cells
+    whose code it reads."""
+    assert not [m["name"] for m in BENCH["end_to_end"] if "workloads" in m]
+    assert not [m["name"] for m in BENCH["per_layer"] if "workloads" not in m]
+
+
+@pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
+def test_every_cell_reports_the_answer_time(cell):
+    assert {m["name"] for m in run.cell_metrics(BENCH, cell, False)} == ANSWER_TIME
+
+
 def test_per_layer_moves_a_metric_its_cells_report():
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     layers = {}

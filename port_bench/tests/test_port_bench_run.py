@@ -3,6 +3,7 @@ of new files and entries alone, and ``correct`` coming out false under the
 control and under each fault a cell can have."""
 from __future__ import annotations
 
+import copy
 import json
 
 import pytest
@@ -100,6 +101,9 @@ NEW_CELLS = {
 
 @pytest.mark.parametrize("kind", list(NEW_CELLS))
 def test_cell_of_new_files_and_entries_alone(tiny_root, capsys, kind):
+    """A cell of a new configuration, added by new files and appended entries
+    alone, reports the answer time; its one new metric is a per-layer one
+    whose ``workloads`` names it."""
     config, traffic, code, checks = NEW_CELLS[kind]
     pb = tiny_root / "port_bench"
     for rel, text in code.items():
@@ -110,21 +114,30 @@ def test_cell_of_new_files_and_entries_alone(tiny_root, capsys, kind):
     (pb / "traffic" / f"{name}_mix.json").write_text(json.dumps(traffic))
     (pb / "metrics" / "answers_n.py").write_text(
         "def read(run):\n    return float(len(run.records))\n")
-    bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    before = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    bench = copy.deepcopy(before)
     bench["configs"].append({"name": name, "source": "a test",
                              "file": f"port_bench/configs/{name}.json",
                              "reduced": [], "why": "a test"})
     bench["workloads"].append({"name": "tiny.new", "config": name,
                                "traffic": f"{name}_mix", "chips": 1, "why": "a test"})
-    bench["end_to_end"].append({"name": "answers_n", "unit": "1", "better": "higher",
-                                "bound": 0.25, "source": "host_clock",
-                                "workloads": ["tiny.new"]})
+    bench["per_layer"].append({"name": "answers_n", "unit": "1", "better": "higher",
+                               "source": "program_counter", "layer": "a test",
+                               "moves": "answer_s", "workloads": ["tiny.new"]})
+    assert set(bench) == set(before)
+    for key, entries in before.items():             # every entry there is unchanged
+        kept = bench[key][:len(entries)] if isinstance(entries, list) else bench[key]
+        assert kept == entries, key
     (tiny_root / "BENCHMARK.json").write_text(json.dumps(bench))
     rc, line, err = run_cell(tiny_root, "tiny.new", capsys)
     assert rc == 0 and line["correct"] is True, err
-    assert set(line["metrics"]) == {"setup_s", "answers_n"}
-    assert line["metrics"]["answers_n"]["value"] == line["attempted"]
+    assert set(line["metrics"]) == {"setup_s", "answer_s", "answer_p95_s"}  # peak_gib: the card
+    assert all(line["metrics"][m]["value"] > 0 for m in ("answer_s", "answer_p95_s"))
     assert set(line["checks"]) == checks
+    rc, line, err = run_cell(tiny_root, "tiny.new", capsys, trace=1)
+    assert rc == 0 and line["correct"] is True, err
+    assert set(line["metrics"]) == {"answers_n"}
+    assert line["metrics"]["answers_n"]["value"] == line["attempted"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
