@@ -511,13 +511,17 @@ class MausSolver:
         return xs, rel
 
     # -- eigenpair finisher ---------------------------------------------------
-    def _refine_chunk(self) -> int:
+    def _refine_chunk(self, dtype: Optional[torch.dtype] = None) -> int:
         """Finisher batch size: the chunk's per-candidate (N, N) factors stay
-        within ``_REFINE_CHUNK_BYTES``, at most ``_REFINE_CHUNK``."""
+        within ``_REFINE_CHUNK_BYTES``, at most ``_REFINE_CHUNK`` of them in
+        the working dtype; a wider ``dtype``'s chunk holds no more bytes
+        than that."""
         n = max(self.knowledge.shape)
-        itemsize = torch.empty((), dtype=self.config.dtype).element_size()
-        return max(1, min(self._REFINE_CHUNK,
-                          self._REFINE_CHUNK_BYTES // (n * n * itemsize)))
+        work = torch.empty((), dtype=self.config.dtype).element_size()
+        wide = torch.empty((), dtype=dtype or self.config.dtype).element_size()
+        chunk = max(1, min(self._REFINE_CHUNK,
+                           self._REFINE_CHUNK_BYTES // (n * n * work)))
+        return max(1, chunk * work // wide)
 
     def _get_A64(self) -> torch.Tensor:
         """The original operand in complex128 on the device, built once."""
@@ -526,20 +530,24 @@ class MausSolver:
         return self._A64
 
     def _refine_batch(self, ks: list, lam: torch.Tensor, V: torch.Tensor,
-                      best: dict, psi_rel: Optional[float] = None) -> None:
+                      best: dict, psi_rel: Optional[float] = None,
+                      dtype: Optional[torch.dtype] = None) -> None:
         """Run the finisher over the candidates ``ks`` (rows of ``lam``/``V``
-        in the same order) in chunks; a result replaces ``best[k]`` when its
+        in the same order) in chunks, its factorizations in ``dtype``
+        (default: the working dtype); a result replaces ``best[k]`` when its
         residual is finite and lower. ``best[k]`` is (λ, v, residual)."""
         kw = {} if psi_rel is None else {"psi_rel": psi_rel}
-        CH = self._refine_chunk()
+        dtype = dtype or self.config.dtype
+        CH = self._refine_chunk(dtype)
         A64 = self._get_A64()
         for i in range(0, len(ks), CH):
             chunk = ks[i:i + CH]
-            lam_s, V_s, res = refine_eigenpairs(
-                A64, lam[i:i + CH].to(self.config.dtype),
-                V[i:i + CH].to(self.config.dtype), steps=5, **kw)
-            lam_h, V_h, res_h = lam_s.cpu().numpy(), V_s.cpu().numpy(), \
-                res.cpu().numpy()
+            with span("maus.refine_eig.round"):
+                lam_s, V_s, res = refine_eigenpairs(
+                    A64, lam[i:i + CH].to(dtype), V[i:i + CH].to(dtype), steps=5,
+                    **kw)
+                lam_h, V_h, res_h = lam_s.cpu().numpy(), V_s.cpu().numpy(), \
+                    res.cpu().numpy()
             for j, k in enumerate(chunk):
                 if np.isfinite(res_h[j]) and res_h[j] < best[k][2]:
                     best[k] = (complex(lam_h[j]), V_h[j], float(res_h[j]))
@@ -572,20 +580,41 @@ class MausSolver:
         improved. Pairs still above tol after the standard rounds get a
         small-ψ escalation (``psi_rel`` = 1e-10): ψ perturbs the Newton
         Jacobian, which stalls pseudospectrally ill-conditioned pairs of
-        non-normal operands."""
+        non-normal operands. When that leaves fewer than the target at tol,
+        the pairs still above it (stragglers, each counted by a
+        ``maus.eig.straggler`` span) take one more small-ψ round whose
+        factorizations are complex128: near some eigenvalues of a large
+        operand the working-dtype LU's error alone keeps Newton from
+        contracting (at 4096² it stalls at a few 1e-8), where in complex128
+        it contracts quadratically."""
         idx = torch.tensor(ks, device=V.device)
         best = {k: (None, None, float(residual[k])) for k in ks}
-        self._refine_batch(ks, lam[idx], V[idx], best)
-        fail = [k for k in ks if not (np.isfinite(best[k][2])
-                                      and best[k][2] <= max(self.config.tol, 0.0))]
-        if fail:
+
+        def above_tol():
+            return [k for k in ks if not (np.isfinite(best[k][2])
+                                          and best[k][2] <= max(self.config.tol, 0.0))]
+
+        def rerun(fail, dtype=None):
+            """The finisher again on ``fail`` from each one's best state."""
             lam_f = torch.stack([
                 torch.tensor(best[k][0], dtype=C128) if best[k][0] is not None
                 else lam[k].cpu().to(C128) for k in fail]).to(V.device)
             V_f = torch.stack([
                 torch.from_numpy(best[k][1]) if best[k][1] is not None
                 else V[k].cpu().to(C128) for k in fail]).to(V.device)
-            self._refine_batch(fail, lam_f, V_f, best, psi_rel=1e-10)
+            self._refine_batch(fail, lam_f, V_f, best, psi_rel=1e-10, dtype=dtype)
+
+        self._refine_batch(ks, lam[idx], V[idx], best)
+        fail = above_tol()
+        if fail:
+            rerun(fail)
+            fail = above_tol()
+        if fail and len(ks) - len(fail) < self.target_solutions \
+                and self.config.dtype != C128:
+            for _ in fail:
+                with span("maus.eig.straggler"):
+                    pass
+            rerun(fail, dtype=C128)
         return {k: b for k, b in best.items() if b[0] is not None}
 
 

@@ -122,6 +122,8 @@ SPANS = (
      "refinement solves (enqueue only)"),
     ("maus.setup", "evolve's shared Hessenberg form or eigh "
      "(timings['setup_s'])"),
+    ("maus.hessenberg.panel", "one compact-WY panel of the blocked "
+     "Hessenberg reduction (enqueue only)"),
     ("maus.engine", "evolve's engine phase (timings['engine_s'])"),
     ("maus.engine.init", "the step, the carry (population, first Psi, the "
      "shared factorization) and the first stop check"),
@@ -134,6 +136,10 @@ SPANS = (
     ("maus.refine.step", "one correction solve of plain refinement, through "
      "its residual norm's host read"),
     ("maus.refine.gmres", "the GMRES-IR fallback of linear refinement"),
+    ("maus.refine_eig.round", "one eigenpair finisher call over a chunk of "
+     "leaders (a batched LU, Newton steps), through its host read"),
+    ("maus.eig.straggler", "one leader that the working-dtype finisher "
+     "rounds left above tol, taken on by the complex128 round (a count)"),
 )
 
 _NULL_SPAN = contextlib.nullcontext()

@@ -1,0 +1,8 @@
+"""The engine loop of an eig answer (``solver/evolve.py``,
+``candidate.step_eigen``: two GEMMs around K2 an iteration, leader election
+on the host): the seconds of the span ``maus.engine`` per traced answer, s."""
+from port_bench import spans
+
+
+def read(run):
+    return spans.seconds_per_answer(run, "maus.engine")

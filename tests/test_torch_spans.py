@@ -3,11 +3,13 @@
 
 A tiny complex64 linear solve (the public ``solve``, whose tensor operand
 takes the on-device condition probe, and a ``MausSolver`` given κ, which
-skips it), a tiny general eig, a Hermitian eig and an SVD each run once
+skips it), a tiny general eig, one large enough for the blocked Hessenberg
+reduction's panels, a Hermitian eig and an SVD each run once
 without and once inside a CPU profile. The spans must be plain CPU
 operations (not user annotations, which the profiler mirrors on the device
-timeline), nest as their layers do, count the engine's iterations and the
-linear path's factorizations, and leave every answer bit-equal; with no
+timeline), nest as their layers do, count the engine's iterations, the
+linear path's factorizations, the Hessenberg panels and the eigenpair
+finisher's chunks, and leave every answer bit-equal; with no
 profiler running ``span`` is one shared null context.
 """
 import logging
@@ -65,6 +67,17 @@ def _eig():
     return maus.eig(E, tol=1e-7, num_candidates=30, config=cfg, device="cpu")
 
 
+def _eig_panels():
+    """A general eig past 2·64 + 2, where the Hessenberg reduction runs in
+    compact-WY panels of 64 reflectors (``reduce_hessenberg_auto``)."""
+    g = torch.Generator().manual_seed(0)
+    n = 160
+    E = torch.complex(torch.randn(n, n, generator=g), torch.randn(n, n, generator=g)) / n ** 0.5
+    cfg = maus.SolverConfig(dtype=C64, convergence_floor=eig_convergence_floor(C64, n))
+    return maus.eig(E, tol=1e-8, num_candidates=8, target_solutions=4, config=cfg,
+                    device="cpu")
+
+
 def _eig_hermitian():
     H = gen.laplace_like_complex(8, make_hermitian=True)
     return maus.eig(H, tol=1e-7, num_candidates=30, device="cpu")
@@ -75,7 +88,8 @@ def _svd():
 
 
 RUNS = {"solve": _solve, "known_cond": _known_cond, "update_problem": _restaged,
-        "eig": _eig, "eig_hermitian": _eig_hermitian, "svd": _svd}
+        "eig": _eig, "eig_panels": _eig_panels, "eig_hermitian": _eig_hermitian,
+        "svd": _svd}
 LINEAR = ("solve", "known_cond", "update_problem")
 
 # the spans each path runs (the GMRES-IR fallback is not expected on any)
@@ -84,10 +98,14 @@ SHARED = {"maus.entry", "maus.setup", "maus.engine", "maus.engine.init",
 PROBE = {"maus.diagnose.cond", "maus.diagnose.cond.power", "maus.diagnose.cond.qr",
          "maus.diagnose.cond.inverse"}
 LINEAR_ONLY = {"maus.factor", "maus.refine.step"}
+# the eigenpair finisher's chunks; the straggler round is not expected
+EIG_FINISH = {"maus.refine_eig.round"}
 EXPECTED = {"solve": SHARED | PROBE | LINEAR_ONLY,
             "known_cond": SHARED | LINEAR_ONLY,
             "update_problem": SHARED | PROBE | LINEAR_ONLY,
-            "eig": SHARED | PROBE, "eig_hermitian": SHARED, "svd": SHARED}
+            "eig": SHARED | PROBE | EIG_FINISH,
+            "eig_panels": SHARED | PROBE | EIG_FINISH | {"maus.hessenberg.panel"},
+            "eig_hermitian": SHARED | EIG_FINISH, "svd": SHARED}
 
 _CACHE = {}
 
@@ -152,6 +170,10 @@ def test_spans_nest_as_the_layers_do(run):
         assert _inside(step, [finish])
     for fac in sp.get("maus.factor", []):
         assert _inside(fac, [init] + sp["maus.engine.iteration"] + [finish])
+    for panel in sp.get("maus.hessenberg.panel", []):
+        assert _inside(panel, [setup])
+    for rnd in sp.get("maus.refine_eig.round", []) + sp.get("maus.eig.straggler", []):
+        assert _inside(rnd, [finish])
 
 
 @pytest.mark.parametrize("run", list(RUNS))
@@ -164,6 +186,12 @@ def test_iteration_spans_count_the_iterations(run):
         assert len(_spans(events, "maus.refine.step")) >= 1
     if run == "update_problem":
         assert len(_spans(events, "maus.entry")) == 2
+    if run == "eig_panels":
+        # (160 − 2) // 64 = 2 panels, the 30 reflectors past them one by one
+        assert len(_spans(events, "maus.hessenberg.panel")) == 2
+    if run in ("eig", "eig_panels", "eig_hermitian"):
+        assert len(_spans(events, "maus.refine_eig.round")) >= 1
+        assert not _spans(events, "maus.eig.straggler")
 
 
 @pytest.mark.parametrize("run", list(RUNS))
