@@ -61,7 +61,7 @@ def scorecard(device=None, n_gemm: int = 4096, n_qr: int = 4096, k_lu: int = 32,
     """The rows (``mfu.py:scorecard``'s shape arguments), measured on
     ``device`` (default: the card). K2 runs at (k_lu, n_lu) and at the eig
     path's (k_lu, n_mv); K1 at n_mv²."""
-    from ..ops.batched_solve import batched_shifted_solve, factor_qr
+    from ..ops.batched_solve import QRReflectors, batched_shifted_solve, factor_qr
     from ..ops.kernels import hess_solve, residual
     from ..utils.precision import full_precision
 
@@ -100,13 +100,15 @@ def scorecard(device=None, n_gemm: int = 4096, n_qr: int = 4096, k_lu: int = 32,
         Aq = cn(n_qr, n_qr)
         fac = factor_qr(Aq)
         rinv = fac.rinv is not None
+        implicit = isinstance(fac, QRReflectors)
         del fac
         # complex Householder QR 16/3·n³, the triangular inverse 4/3·n³;
-        # A read, Q, R (and R⁻¹) written
+        # A read, Q, R (and R⁻¹) written, or with Q implicit V and R⁻¹
         _row(rows, "shared_qr_factor",
-             f"{n_qr}x{n_qr} c64{' + R^-1' if rinv else ''}",
+             f"{n_qr}x{n_qr} c64{' + R^-1' if rinv else ''}"
+             f"{', Q implicit' if implicit else ''}",
              ms(lambda: factor_qr(Aq), 3), (16.0 / 3.0 + (4.0 / 3.0 if rinv else 0.0))
-             * n_qr ** 3, (3 + rinv) * 8 * n_qr ** 2, "fp32", on_card)
+             * n_qr ** 3, (3 + rinv - implicit) * 8 * n_qr ** 2, "fp32", on_card)
         del Aq
 
         # ---- batched shifted LU solve: one LU a candidate (P4) --------------

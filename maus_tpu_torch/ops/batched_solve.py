@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.metrics import span
 from .kernels.lu import lu_factor
 from .regularize import apply_shift, psi_magnitude, shift_diagonal
 
@@ -104,6 +105,25 @@ class QRFactors:
     rinv: Optional[torch.Tensor] = None
 
 
+@dataclasses.dataclass
+class QRReflectors:
+    """Householder-QR bundle without an explicit Q, as LAPACK's xGELS keeps
+    it: ``v`` holds geqrf's Householder vectors (unit diagonal, zeros above
+    it), ``t`` the compact-WY factor T_k of each block of ``nb`` of them,
+    stacked (N/nb rounded up, nb, nb), so that Q = Π_k (I − V_k T_k V_kᴴ); a
+    last, narrower block's T is zero-padded. ``rinv`` is R⁻¹, built from
+    geqrf's upper triangle before that buffer became ``v``. A solve applies
+    Qᴴ block by block, reading about as many bytes as one product with an
+    explicit Q, which this form never spends (16/3)·N³ flops to build."""
+
+    v: torch.Tensor
+    t: torch.Tensor
+    rinv: torch.Tensor
+    # the solve of one vector captured as a CUDA graph, on the card (not state)
+    graph: object = dataclasses.field(default=None, repr=False, compare=False,
+                                      metadata={"checkpoint": False})
+
+
 def invert_triangular(R: torch.Tensor, block: int = 128) -> torch.Tensor:
     """Explicit inverse of an upper-triangular R by blocked recursion:
 
@@ -113,7 +133,9 @@ def invert_triangular(R: torch.Tensor, block: int = 128) -> torch.Tensor:
     The off-diagonal work is matrix products; only ``block``-sized diagonal
     tiles go to the triangular solver. The blocks are written into one
     preallocated output instead of concatenated, which keeps the peak memory
-    at one extra N² buffer (the JAX version concatenates)."""
+    at one extra N² buffer (the JAX version concatenates). Only R's upper
+    triangle is read (the tiles' triangular solves and the strictly upper
+    blocks), so geqrf's output can be passed as it is."""
     out = torch.zeros_like(R)
     _invert_into(R, out, block)
     return out
@@ -134,14 +156,85 @@ def _invert_into(R: torch.Tensor, out: torch.Tensor, block: int) -> None:
 
 def _want_rinv(H: torch.Tensor) -> bool:
     """Build R⁻¹ with the shared factorization for a single CUDA operand of
-    N ≥ 1024: there a solve becomes two matrix-vector products. No upper
-    cap: R⁻¹ adds one N² buffer, 2.1 GB at 16384² in complex64, far inside
-    an 80 GB card. On the CPU the triangular substitution is already
-    bandwidth-bound, and the JAX package builds no R⁻¹ there either."""
+    N ≥ 1024: there a solve becomes matrix-vector products. No upper cap:
+    R⁻¹ adds one N² buffer, 2.1 GB at 16384² in complex64, far inside an
+    80 GB card. On the CPU the triangular substitution is already
+    bandwidth-bound, and the JAX package builds no R⁻¹ there either. The
+    same gate keeps Q implicit (:class:`QRReflectors`)."""
     return H.ndim == 2 and H.shape[0] >= 1024 and H.is_cuda
 
 
-def factor_qr(H: torch.Tensor, with_rinv: Optional[bool] = None) -> QRFactors:
+def wy_block(n: int) -> int:
+    """Reflectors per compact-WY block of an N×N implicit QR: N/8 as a
+    power of two within [64, 512]. On the card a solve's Qᴴ is then 8 to 32
+    blocks; fewer and wider blocks read V in fewer, longer products (at
+    4096² 8 blocks of 512 replay in 0.13 ms, 16 of 256 in 0.64 ms), and past
+    512 the blocks' T cost more to build than they save (at 16384², 12.8 ms
+    for blocks of 512, 25.4 ms for 1024)."""
+    return min(512, max(64, 1 << max(0, (n // 8).bit_length() - 1)))
+
+
+def _column_major(H: torch.Tensor) -> torch.Tensor:
+    """A copy of the square H in LAPACK's column-major layout, which geqrf
+    factors in place."""
+    n = H.shape[0]
+    return torch.empty_strided((n, n), (1, n), dtype=H.dtype,
+                               device=H.device).copy_(H)
+
+
+def _wy_factors(v: torch.Tensor, tau: torch.Tensor, nb: int) -> torch.Tensor:
+    """T_k of each block of ``nb`` reflectors of ``v`` (unit-lower, zero
+    above the diagonal), stacked (blocks, nb, nb). xLARFT's recurrence
+    T(:i, i) = −τ_i·T(:i, :i)·V(:, :i)ᴴ·v_i, T(i, i) = τ_i, is the row
+    triangular system T·(I + S·D) = D with S = striu(V_kᴴV_k) and D =
+    diag(τ); I + S·D is unit upper triangular whatever τ, so a reflector
+    with τ = 0 (a column already reduced) needs no special case."""
+    n = v.shape[-1]
+    blocks = -(-n // nb)
+    S = v.new_zeros((blocks, nb, nb))
+    D = v.new_zeros((blocks * nb,))
+    D[:n] = tau
+    D = D.view(blocks, nb)
+    for k in range(blocks):
+        j = k * nb
+        w = min(nb, n - j)
+        vk = v[j:, j:j + w]
+        S[k, :w, :w] = vk.mH @ vk
+    M = S.triu_(1).mul_(D.unsqueeze(-2))
+    return torch.linalg.solve_triangular(M, torch.diag_embed(D), upper=True,
+                                         left=False, unitriangular=True).contiguous()
+
+
+def _factor_reflectors(a: torch.Tensor) -> QRReflectors:
+    """The implicit QR of the column-major ``a``, overwritten: geqrf in
+    place, R⁻¹ from its upper triangle, then the same buffer turned into V
+    and the blocks' T."""
+    with span("maus.factor.implicit_q"):
+        tau = a.new_empty((a.shape[0],))
+        torch.geqrf(a, out=(a, tau))
+        rinv = invert_triangular(a)
+        a.tril_(-1).diagonal().fill_(1)
+        return QRReflectors(a, _wy_factors(a, tau, wy_block(a.shape[0])), rinv)
+
+
+def _implicit(H: torch.Tensor, with_rinv: Optional[bool],
+              implicit: Optional[bool]) -> bool:
+    if implicit is None:
+        return with_rinv is not False and _want_rinv(H)
+    if implicit and (H.ndim != 2 or with_rinv is False):
+        raise ValueError("the implicit QR is for one square operand and "
+                         "always builds R⁻¹")
+    return implicit
+
+
+def factor_qr(H: torch.Tensor, with_rinv: Optional[bool] = None,
+              implicit: Optional[bool] = None):
+    """QR of H, or of each of a (K, N, N) batch: a :class:`QRReflectors`
+    where ``implicit`` holds (default: the R⁻¹ gate, :func:`_want_rinv`),
+    else a :class:`QRFactors` with an explicit Q, and R⁻¹ where
+    ``with_rinv`` holds (default: the same gate)."""
+    if _implicit(H, with_rinv, implicit):
+        return _factor_reflectors(_column_major(H))
     q, r = torch.linalg.qr(H)
     if H.ndim != 2:
         return QRFactors(q, r, None)
@@ -150,25 +243,112 @@ def factor_qr(H: torch.Tensor, with_rinv: Optional[bool] = None) -> QRFactors:
     return QRFactors(q, r, invert_triangular(r) if with_rinv else None)
 
 
-def solve_qr(fac: QRFactors, b: torch.Tensor) -> torch.Tensor:
-    """x = R⁻¹ Qᴴ b, for ``b`` of shape (..., N)."""
+class _Work:
+    """The buffers of one solve of (N, M) right-hand sides against a
+    :class:`QRReflectors`: ``x`` the right-hand sides, overwritten by Qᴴ·x,
+    ``c`` their conjugates, ``r`` and ``s`` a block's rows, ``out`` the
+    answer. With them a solve allocates nothing, which a captured graph
+    needs: allocations inside a capture would each take a private pool of
+    the graph's own, new device memory for every factorization."""
+
+    def __init__(self, like: torch.Tensor, n: int, nb: int, m: int):
+        self.x, self.c, self.out = (like.new_empty((n, m)) for _ in range(3))
+        self.r, self.s = like.new_empty((m, nb)), like.new_empty((m, nb))
+
+    def solve(self, fac: QRReflectors) -> None:
+        """out ← R⁻¹·Qᴴ·x. Block k is x ← x − V_k·(T_kᴴ·(V_kᴴ·x)) on rows
+        j_k … N, the blocks in order. Its first two products are taken as
+        rows, zᴴ = (xᴴ·V_k)·T_k, so that V_k and T_k are read as stored: a
+        product with a conjugate-transposed matrix makes torch conjugate
+        all of it first (at 16384² that copy of an explicit Q takes twice
+        the product's own time), and here only the M vectors are
+        conjugated."""
+        n, nb = fac.v.shape[-1], fac.t.shape[-1]
+        for k in range(fac.t.shape[0]):
+            j = k * nb
+            w = min(nb, n - j)
+            vk, xk, r, s = fac.v[j:, j:j + w], self.x[j:], self.r[:, :w], self.s[:, :w]
+            ck = torch.conj_physical(xk, out=self.c[j:])
+            torch.mm(ck.mT, vk, out=r)
+            torch.mm(r, fac.t[k, :w, :w], out=s)
+            xk.addmm_(vk, s.conj_physical_().mT, alpha=-1)
+        torch.mm(fac.rinv, self.x, out=self.out)
+
+
+# one capture stream a card, as ``torch.cuda.graph`` keeps one: cuBLAS holds
+# a workspace for every stream it has run on
+_CAPTURE_STREAMS: dict = {}
+
+
+class _SolveGraph:
+    """A bundle's solve of one vector as one captured CUDA graph. Its five
+    launches a block, about forty at 4096², take the host several times as
+    long as the device when launched one by one. The first solve runs
+    eagerly on a side stream, which also readies cuBLAS there, and the graph
+    is captured after it (with no synchronisation and no emptying of the
+    allocator's cache, which ``torch.cuda.graph`` would add); a later solve
+    copies b into the work's ``x`` and replays. Either leaves the answer in
+    the work's ``out``."""
+
+    def __init__(self, fac: QRReflectors, b: torch.Tensor):
+        dev = b.device
+        main = torch.cuda.current_stream(dev)
+        side = _CAPTURE_STREAMS.setdefault(dev, torch.cuda.Stream(device=dev))
+        self.work = _Work(b, b.shape[0], fac.t.shape[-1], 1)
+        self.graph = torch.cuda.CUDAGraph()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.work.x.copy_(b.unsqueeze(-1))
+            self.work.solve(fac)
+            self.graph.capture_begin()
+            self.work.solve(fac)
+            self.graph.capture_end()
+        main.wait_stream(side)
+
+    def replay(self, b: torch.Tensor) -> None:
+        self.work.x.copy_(b.unsqueeze(-1))
+        self.graph.replay()
+
+
+def solve_qr(fac, b: torch.Tensor) -> torch.Tensor:
+    """x = R⁻¹ Qᴴ b, for ``b`` of shape (..., N). With Q implicit a single
+    vector on the card is solved by the bundle's captured graph."""
+    if isinstance(fac, QRReflectors):
+        if b.is_cuda and b.ndim == 1 and b.dtype == fac.v.dtype:
+            if fac.graph is None:
+                fac.graph = _SolveGraph(fac, b)
+            else:
+                fac.graph.replay(b)
+            return fac.graph.work.out.squeeze(-1).clone()
+        n = fac.v.shape[-1]
+        B = b.reshape(-1, n)
+        work = _Work(B, n, fac.t.shape[-1], B.shape[0])
+        work.x.copy_(B.mT)
+        work.solve(fac)
+        return work.out.mT.reshape(b.shape)
     y = (fac.q.mH @ b.unsqueeze(-1)).squeeze(-1)
     if fac.rinv is not None:
         return (fac.rinv @ y.unsqueeze(-1)).squeeze(-1)
     return _solve_upper(fac.r, y)
 
 
-def shared_factor_qr(A: torch.Tensor, psi,
-                     with_rinv: Optional[bool] = None) -> QRFactors:
-    """Factor ``H = A + Ψ·(I + jitter)`` once by QR (default linear path)."""
-    return factor_qr(apply_shift(A, psi), with_rinv=with_rinv)
+def shared_factor_qr(A: torch.Tensor, psi, with_rinv: Optional[bool] = None,
+                     implicit: Optional[bool] = None):
+    """Factor ``H = A + Ψ·(I + jitter)`` once by QR (default linear path).
+    The implicit form shifts a column-major copy of A and factors it in
+    place, so no other N² copy of H is held."""
+    if _implicit(A, with_rinv, implicit):
+        H = _column_major(A)
+        H.diagonal().add_(shift_diagonal(A.shape[-1], psi, A.dtype, device=A.device))
+        return _factor_reflectors(H)
+    return factor_qr(apply_shift(A, psi), with_rinv=with_rinv, implicit=False)
 
 
 def solve_any(fac, b: torch.Tensor) -> torch.Tensor:
     """Solve against whichever factorization bundle ``fac`` is."""
     if isinstance(fac, CholFactors):
         return solve_chol(fac, b)
-    if isinstance(fac, QRFactors):
+    if isinstance(fac, (QRFactors, QRReflectors)):
         return solve_qr(fac, b)
     return solve_factored(fac, b)
 

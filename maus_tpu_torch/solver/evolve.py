@@ -53,8 +53,9 @@ import torch
 from ..core.types import (CandidateStatus, Population, ProblemKnowledge,
                           ProblemType, SolverConfig, StrategyState,
                           initial_strategy)
-from ..ops.batched_solve import (CholFactors, QRFactors, _want_rinv,
-                                 shared_factor_hpd, shared_factor_qr)
+from ..ops.batched_solve import (CholFactors, QRFactors, QRReflectors,
+                                 _want_rinv, shared_factor_hpd, shared_factor_qr,
+                                 wy_block)
 from ..ops.hessenberg import HessCache, reduce_hessenberg_auto
 from ..ops.regularize import pow10, psi_magnitude
 from ..parallel.dist_hessenberg import dist_hessenberg, dist_solve_shifted
@@ -119,7 +120,7 @@ def _metrics_row(cfg: SolverConfig, pop: Population, strat: StrategyState,
 class EvolveCarry:
     pop: Population
     strat: StrategyState
-    fac: object                  # QRFactors / CholFactors / LUFactors / DistQR; None (eig)
+    fac: object                  # a QR bundle / CholFactors / LUFactors / DistQR; None (eig)
     psi_cached: torch.Tensor     # f32 — Ψ the carried factorization was built with
     iteration: torch.Tensor      # i32
     best_residual: torch.Tensor  # f32 — previous iteration's best active residual
@@ -280,7 +281,11 @@ def _fac_template(knowledge: ProblemKnowledge, A: torch.Tensor):
                       torch.empty(shard, dtype=A.dtype, device="meta"))
     if knowledge.is_positive_definite:
         return CholFactors(meta())
-    return QRFactors(meta(), meta(), meta() if _want_rinv(A) else None)
+    if _want_rinv(A):
+        nb = wy_block(n)
+        return QRReflectors(meta(), torch.empty((-(-n // nb), nb, nb), dtype=A.dtype,
+                                                device="meta"), meta())
+    return QRFactors(meta(), meta(), None)
 
 
 def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,

@@ -131,6 +131,9 @@ SPANS = (
     ("maus.factor", "one shared factorization of the linear path: the "
      "engine's at init and on a Psi rung, or refinement's fresh QR (enqueue "
      "only)"),
+    ("maus.factor.implicit_q", "one shared factorization that keeps Q "
+     "implicit, inside maus.factor: geqrf in place, R⁻¹ from its upper "
+     "triangle, the blocks' compact-WY factors (a count, enqueue only)"),
     ("maus.finish", "evolve's finish phase: leaders, finishers, host copies "
      "(timings['finish_s'])"),
     ("maus.refine.step", "one correction solve of plain refinement, through "
