@@ -11,8 +11,8 @@ live with CUDA events (:func:`common.time_ms`).
 
 Rows: a complex64 GEMM at 4096³ through ``torch.matmul`` at full FP32
 precision (the measured compute ceiling), a 256 MB HBM stream, the linear
-path's shared QR (with R⁻¹, as ``ops/batched_solve.factor_qr`` builds it on
-the card), ``batched_shifted_solve`` at K = 32, n = 256 (one LU a
+path's shared QR (R⁻¹ and the reflectors, as ``ops/batched_solve.factor_qr``
+builds it), ``batched_shifted_solve`` at K = 32, n = 256 (one LU a
 candidate, through P4), K2 at (32, 256) and at the eig path's (32, 4096),
 the population matvec at 16 × 4096, and K1 at 4096² complex64 in place of
 the TPU-only ``sliced_f64_residual``/``fused_slice_residual`` rows. The
@@ -61,7 +61,7 @@ def scorecard(device=None, n_gemm: int = 4096, n_qr: int = 4096, k_lu: int = 32,
     """The rows (``mfu.py:scorecard``'s shape arguments), measured on
     ``device`` (default: the card). K2 runs at (k_lu, n_lu) and at the eig
     path's (k_lu, n_mv); K1 at n_mv²."""
-    from ..ops.batched_solve import QRReflectors, batched_shifted_solve, factor_qr
+    from ..ops.batched_solve import batched_shifted_solve, factor_qr
     from ..ops.kernels import hess_solve, residual
     from ..utils.precision import full_precision
 
@@ -98,17 +98,11 @@ def scorecard(device=None, n_gemm: int = 4096, n_qr: int = 4096, k_lu: int = 32,
 
         # ---- the linear path's shared factorization -------------------------
         Aq = cn(n_qr, n_qr)
-        fac = factor_qr(Aq)
-        rinv = fac.rinv is not None
-        implicit = isinstance(fac, QRReflectors)
-        del fac
-        # complex Householder QR 16/3·n³, the triangular inverse 4/3·n³;
-        # A read, Q, R (and R⁻¹) written, or with Q implicit V and R⁻¹
-        _row(rows, "shared_qr_factor",
-             f"{n_qr}x{n_qr} c64{' + R^-1' if rinv else ''}"
-             f"{', Q implicit' if implicit else ''}",
-             ms(lambda: factor_qr(Aq), 3), (16.0 / 3.0 + (4.0 / 3.0 if rinv else 0.0))
-             * n_qr ** 3, (3 + rinv - implicit) * 8 * n_qr ** 2, "fp32", on_card)
+        # complex Householder QR 16/3·n³, the triangular inverse 4/3·n³; A
+        # read, V and R⁻¹ written (Q is never formed)
+        _row(rows, "shared_qr_factor", f"{n_qr}x{n_qr} c64 + R^-1, Q implicit",
+             ms(lambda: factor_qr(Aq), 3), (16.0 / 3.0 + 4.0 / 3.0) * n_qr ** 3,
+             3 * 8 * n_qr ** 2, "fp32", on_card)
         del Aq
 
         # ---- batched shifted LU solve: one LU a candidate (P4) --------------

@@ -94,11 +94,11 @@ def shared_factor_hpd(A: torch.Tensor, psi) -> CholFactors:
 
 @dataclasses.dataclass
 class QRFactors:
-    """Householder-QR bundle; ``rinv`` is an optional explicit R⁻¹, with
-    which every solve is two matrix-vector products instead of a product and
-    a triangular substitution. In iterative refinement the correction solve
-    is a preconditioner, so the O(ε·κ) forward error of an explicit inverse
-    leaves the contraction rate unchanged."""
+    """Householder-QR bundle with an explicit Q, and R⁻¹ where it is not
+    None: the form in which a carry of the JAX package arrives
+    (``utils/convert.fac_from_numpy``), so that the parity tests run both
+    packages from one state. No module of the port builds one; the port's
+    own QR is :class:`QRReflectors`."""
 
     q: torch.Tensor
     r: torch.Tensor
@@ -107,21 +107,28 @@ class QRFactors:
 
 @dataclasses.dataclass
 class QRReflectors:
-    """Householder-QR bundle without an explicit Q, as LAPACK's xGELS keeps
-    it: ``v`` holds geqrf's Householder vectors (unit diagonal, zeros above
-    it), ``t`` the compact-WY factor T_k of each block of ``nb`` of them,
-    stacked (N/nb rounded up, nb, nb), so that Q = Π_k (I − V_k T_k V_kᴴ); a
-    last, narrower block's T is zero-padded. ``rinv`` is R⁻¹, built from
-    geqrf's upper triangle before that buffer became ``v``. A solve applies
-    Qᴴ block by block, reading about as many bytes as one product with an
-    explicit Q, which this form never spends (16/3)·N³ flops to build."""
+    """The linear path's Householder-QR bundle, without an explicit Q, as
+    LAPACK's xGELS keeps it: ``v`` holds geqrf's Householder vectors (unit
+    diagonal, zeros above it), ``t`` the compact-WY factor T_k of each block
+    of ``nb`` of them, stacked (N/nb rounded up, nb, nb), so that Q = Π_k
+    (I − V_k T_k V_kᴴ); a last, narrower block's T is zero-padded. ``rinv``
+    is R⁻¹, built from geqrf's upper triangle before that buffer became
+    ``v``, with which every solve is products instead of a triangular
+    substitution: in iterative refinement the correction solve is a
+    preconditioner, so the O(ε·κ) forward error of an explicit inverse
+    leaves the contraction rate unchanged. A solve applies Qᴴ (or Q) block
+    by block, reading about as many bytes as one product with an explicit
+    Q, which this form never spends (16/3)·N³ flops to build."""
 
     v: torch.Tensor
     t: torch.Tensor
     rinv: torch.Tensor
-    # the solve of one vector captured as a CUDA graph, on the card (not state)
+    # the solves of one vector by A and by Aᴴ, each captured as a CUDA graph
+    # on the card (not state)
     graph: object = dataclasses.field(default=None, repr=False, compare=False,
                                       metadata={"checkpoint": False})
+    graph_adj: object = dataclasses.field(default=None, repr=False, compare=False,
+                                          metadata={"checkpoint": False})
 
 
 def invert_triangular(R: torch.Tensor, block: int = 128) -> torch.Tensor:
@@ -154,16 +161,6 @@ def _invert_into(R: torch.Tensor, out: torch.Tensor, block: int) -> None:
     out[:h, h:] = -(out[:h, :h] @ (R[:h, h:] @ out[h:, h:]))
 
 
-def _want_rinv(H: torch.Tensor) -> bool:
-    """Build R⁻¹ with the shared factorization for a single CUDA operand of
-    N ≥ 1024: there a solve becomes matrix-vector products. No upper cap:
-    R⁻¹ adds one N² buffer, 2.1 GB at 16384² in complex64, far inside an
-    80 GB card. On the CPU the triangular substitution is already
-    bandwidth-bound, and the JAX package builds no R⁻¹ there either. The
-    same gate keeps Q implicit (:class:`QRReflectors`)."""
-    return H.ndim == 2 and H.shape[0] >= 1024 and H.is_cuda
-
-
 def wy_block(n: int) -> int:
     """Reflectors per compact-WY block of an N×N implicit QR: N/8 as a
     power of two within [64, 512]. On the card a solve's Qᴴ is then 8 to 32
@@ -172,6 +169,18 @@ def wy_block(n: int) -> int:
     512 the blocks' T cost more to build than they save (at 16384², 12.8 ms
     for blocks of 512, 25.4 ms for 1024)."""
     return min(512, max(64, 1 << max(0, (n // 8).bit_length() - 1)))
+
+
+def qr_template(n: int, dtype: torch.dtype) -> QRReflectors:
+    """The :class:`QRReflectors` of an N×N operand with meta tensors of its
+    leaves' shapes and dtype in place of the factors (a checkpoint loader's
+    template)."""
+    nb = wy_block(n)
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return QRReflectors(meta(n, n), meta(-(-n // nb), nb, nb), meta(n, n))
 
 
 def _column_major(H: torch.Tensor) -> torch.Tensor:
@@ -206,63 +215,41 @@ def _wy_factors(v: torch.Tensor, tau: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 def _factor_reflectors(a: torch.Tensor) -> QRReflectors:
-    """The implicit QR of the column-major ``a``, overwritten: geqrf in
-    place, R⁻¹ from its upper triangle, then the same buffer turned into V
-    and the blocks' T."""
-    with span("maus.factor.implicit_q"):
-        tau = a.new_empty((a.shape[0],))
-        torch.geqrf(a, out=(a, tau))
-        rinv = invert_triangular(a)
-        a.tril_(-1).diagonal().fill_(1)
-        return QRReflectors(a, _wy_factors(a, tau, wy_block(a.shape[0])), rinv)
+    """The QR of the column-major ``a``, overwritten: geqrf in place, R⁻¹
+    from its upper triangle, then the same buffer turned into V and the
+    blocks' T."""
+    tau = a.new_empty((a.shape[0],))
+    torch.geqrf(a, out=(a, tau))
+    rinv = invert_triangular(a)
+    a.tril_(-1).diagonal().fill_(1)
+    return QRReflectors(a, _wy_factors(a, tau, wy_block(a.shape[0])), rinv)
 
 
-def _implicit(H: torch.Tensor, with_rinv: Optional[bool],
-              implicit: Optional[bool]) -> bool:
-    if implicit is None:
-        return with_rinv is not False and _want_rinv(H)
-    if implicit and (H.ndim != 2 or with_rinv is False):
-        raise ValueError("the implicit QR is for one square operand and "
-                         "always builds R⁻¹")
-    return implicit
-
-
-def factor_qr(H: torch.Tensor, with_rinv: Optional[bool] = None,
-              implicit: Optional[bool] = None):
-    """QR of H, or of each of a (K, N, N) batch: a :class:`QRReflectors`
-    where ``implicit`` holds (default: the R⁻¹ gate, :func:`_want_rinv`),
-    else a :class:`QRFactors` with an explicit Q, and R⁻¹ where
-    ``with_rinv`` holds (default: the same gate)."""
-    if _implicit(H, with_rinv, implicit):
-        return _factor_reflectors(_column_major(H))
-    q, r = torch.linalg.qr(H)
-    if H.ndim != 2:
-        return QRFactors(q, r, None)
-    if with_rinv is None:
-        with_rinv = _want_rinv(H)
-    return QRFactors(q, r, invert_triangular(r) if with_rinv else None)
+def factor_qr(H: torch.Tensor) -> QRReflectors:
+    """The QR of the square H (the condition probe's)."""
+    return _factor_reflectors(_column_major(H))
 
 
 class _Work:
     """The buffers of one solve of (N, M) right-hand sides against a
-    :class:`QRReflectors`: ``x`` the right-hand sides, overwritten by Qᴴ·x,
-    ``c`` their conjugates, ``r`` and ``s`` a block's rows, ``out`` the
-    answer. With them a solve allocates nothing, which a captured graph
-    needs: allocations inside a capture would each take a private pool of
-    the graph's own, new device memory for every factorization."""
+    :class:`QRReflectors`: ``x`` the right-hand sides, ``c`` conjugates,
+    ``r`` and ``s`` a block's rows, ``out`` the answer. With them a solve
+    allocates nothing, which a captured graph needs: allocations inside a
+    capture would each take a private pool of the graph's own, new device
+    memory for every factorization."""
 
     def __init__(self, like: torch.Tensor, n: int, nb: int, m: int):
         self.x, self.c, self.out = (like.new_empty((n, m)) for _ in range(3))
         self.r, self.s = like.new_empty((m, nb)), like.new_empty((m, nb))
 
     def solve(self, fac: QRReflectors) -> None:
-        """out ← R⁻¹·Qᴴ·x. Block k is x ← x − V_k·(T_kᴴ·(V_kᴴ·x)) on rows
-        j_k … N, the blocks in order. Its first two products are taken as
-        rows, zᴴ = (xᴴ·V_k)·T_k, so that V_k and T_k are read as stored: a
-        product with a conjugate-transposed matrix makes torch conjugate
-        all of it first (at 16384² that copy of an explicit Q takes twice
-        the product's own time), and here only the M vectors are
-        conjugated."""
+        """out ← R⁻¹·Qᴴ·x, x overwritten by Qᴴ·x. Block k is x ← x −
+        V_k·(T_kᴴ·(V_kᴴ·x)) on rows j_k … N, the blocks in order. Its first
+        two products are taken as rows, zᴴ = (xᴴ·V_k)·T_k, so that V_k and
+        T_k are read as stored: a product with a conjugate-transposed matrix
+        makes torch conjugate all of it first (at 16384² that copy of an
+        explicit Q takes twice the product's own time), and here only the M
+        vectors are conjugated."""
         n, nb = fac.v.shape[-1], fac.t.shape[-1]
         for k in range(fac.t.shape[0]):
             j = k * nb
@@ -274,6 +261,23 @@ class _Work:
             xk.addmm_(vk, s.conj_physical_().mT, alpha=-1)
         torch.mm(fac.rinv, self.x, out=self.out)
 
+    def solve_adj(self, fac: QRReflectors) -> None:
+        """out ← Q·R⁻ᴴ·x. R⁻ᴴ·x is conj(R⁻¹ᵀ·conj x); then block k is y ←
+        y − V_k·(T_k·(V_kᴴ·y)) on rows j_k … N, the blocks in reverse order.
+        As in :meth:`solve`, R⁻¹, V_k and T_k are read as stored or
+        transposed, never conjugated: zᵀ = conj(yᴴ·V_k)·T_kᵀ."""
+        n, nb = fac.v.shape[-1], fac.t.shape[-1]
+        torch.conj_physical(self.x, out=self.c)
+        y = torch.mm(fac.rinv.mT, self.c, out=self.out).conj_physical_()
+        for k in reversed(range(fac.t.shape[0])):
+            j = k * nb
+            w = min(nb, n - j)
+            vk, yk, r, s = fac.v[j:, j:j + w], y[j:], self.r[:, :w], self.s[:, :w]
+            ck = torch.conj_physical(yk, out=self.c[j:])
+            torch.mm(ck.mT, vk, out=r)
+            torch.mm(r.conj_physical_(), fac.t[k, :w, :w].mT, out=s)
+            yk.addmm_(vk, s.mT, alpha=-1)
+
 
 # one capture stream a card, as ``torch.cuda.graph`` keeps one: cuBLAS holds
 # a workspace for every stream it has run on
@@ -281,27 +285,29 @@ _CAPTURE_STREAMS: dict = {}
 
 
 class _SolveGraph:
-    """A bundle's solve of one vector as one captured CUDA graph. Its five
-    launches a block, about forty at 4096², take the host several times as
-    long as the device when launched one by one. The first solve runs
-    eagerly on a side stream, which also readies cuBLAS there, and the graph
-    is captured after it (with no synchronisation and no emptying of the
-    allocator's cache, which ``torch.cuda.graph`` would add); a later solve
-    copies b into the work's ``x`` and replays. Either leaves the answer in
-    the work's ``out``."""
+    """A bundle's solve of one vector (``_Work.solve``, or ``_Work.
+    solve_adj`` for Aᴴ) as one captured CUDA graph. Its five launches a
+    block, about forty at 4096², take the host several times as long as the
+    device when launched one by one. The first solve runs eagerly on a side
+    stream, which also readies cuBLAS there, and the graph is captured after
+    it (with no synchronisation and no emptying of the allocator's cache,
+    which ``torch.cuda.graph`` would add); a later solve copies b into the
+    work's ``x`` and replays. Either leaves the answer in the work's
+    ``out``."""
 
-    def __init__(self, fac: QRReflectors, b: torch.Tensor):
+    def __init__(self, fac: QRReflectors, b: torch.Tensor, adjoint: bool = False):
         dev = b.device
         main = torch.cuda.current_stream(dev)
         side = _CAPTURE_STREAMS.setdefault(dev, torch.cuda.Stream(device=dev))
         self.work = _Work(b, b.shape[0], fac.t.shape[-1], 1)
+        solve = self.work.solve_adj if adjoint else self.work.solve
         self.graph = torch.cuda.CUDAGraph()
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self.work.x.copy_(b.unsqueeze(-1))
-            self.work.solve(fac)
+            solve(fac)
             self.graph.capture_begin()
-            self.work.solve(fac)
+            solve(fac)
             self.graph.capture_end()
         main.wait_stream(side)
 
@@ -310,38 +316,50 @@ class _SolveGraph:
         self.graph.replay()
 
 
+def _solve_reflectors(fac: QRReflectors, b: torch.Tensor, adjoint: bool) -> torch.Tensor:
+    """A solve by A (or Aᴴ) for ``b`` of shape (..., N); a single vector on
+    the card goes through the bundle's captured graph of that direction."""
+    if b.is_cuda and b.ndim == 1 and b.dtype == fac.v.dtype:
+        slot = "graph_adj" if adjoint else "graph"
+        graph = getattr(fac, slot)
+        if graph is None:
+            graph = _SolveGraph(fac, b, adjoint)
+            setattr(fac, slot, graph)
+        else:
+            graph.replay(b)
+        return graph.work.out.squeeze(-1).clone()
+    n = fac.v.shape[-1]
+    B = b.reshape(-1, n)
+    work = _Work(B, n, fac.t.shape[-1], B.shape[0])
+    work.x.copy_(B.mT)
+    (work.solve_adj if adjoint else work.solve)(fac)
+    return work.out.mT.reshape(b.shape)
+
+
 def solve_qr(fac, b: torch.Tensor) -> torch.Tensor:
-    """x = R⁻¹ Qᴴ b, for ``b`` of shape (..., N). With Q implicit a single
-    vector on the card is solved by the bundle's captured graph."""
+    """x = R⁻¹ Qᴴ b, the solve by A, for ``b`` of shape (..., N)."""
     if isinstance(fac, QRReflectors):
-        if b.is_cuda and b.ndim == 1 and b.dtype == fac.v.dtype:
-            if fac.graph is None:
-                fac.graph = _SolveGraph(fac, b)
-            else:
-                fac.graph.replay(b)
-            return fac.graph.work.out.squeeze(-1).clone()
-        n = fac.v.shape[-1]
-        B = b.reshape(-1, n)
-        work = _Work(B, n, fac.t.shape[-1], B.shape[0])
-        work.x.copy_(B.mT)
-        work.solve(fac)
-        return work.out.mT.reshape(b.shape)
+        return _solve_reflectors(fac, b, adjoint=False)
     y = (fac.q.mH @ b.unsqueeze(-1)).squeeze(-1)
     if fac.rinv is not None:
         return (fac.rinv @ y.unsqueeze(-1)).squeeze(-1)
     return _solve_upper(fac.r, y)
 
 
-def shared_factor_qr(A: torch.Tensor, psi, with_rinv: Optional[bool] = None,
-                     implicit: Optional[bool] = None):
-    """Factor ``H = A + Ψ·(I + jitter)`` once by QR (default linear path).
-    The implicit form shifts a column-major copy of A and factors it in
-    place, so no other N² copy of H is held."""
-    if _implicit(A, with_rinv, implicit):
-        H = _column_major(A)
-        H.diagonal().add_(shift_diagonal(A.shape[-1], psi, A.dtype, device=A.device))
+def solve_qr_adj(fac: QRReflectors, b: torch.Tensor) -> torch.Tensor:
+    """x = Q R⁻ᴴ b, the solve by Aᴴ, for ``b`` of shape (..., N)."""
+    return _solve_reflectors(fac, b, adjoint=True)
+
+
+def shared_factor_qr(A: torch.Tensor, psi) -> QRReflectors:
+    """Factor ``H = A + Ψ·(I + jitter)`` once by QR (default linear path),
+    the factorization in one span ``maus.factor.implicit_q``. It shifts a
+    column-major copy of A and factors it in place, so no other N² copy of
+    H is held."""
+    H = _column_major(A)
+    H.diagonal().add_(shift_diagonal(A.shape[-1], psi, A.dtype, device=A.device))
+    with span("maus.factor.implicit_q"):
         return _factor_reflectors(H)
-    return factor_qr(apply_shift(A, psi), with_rinv=with_rinv, implicit=False)
 
 
 def solve_any(fac, b: torch.Tensor) -> torch.Tensor:

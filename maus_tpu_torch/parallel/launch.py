@@ -6,9 +6,9 @@ In the port every rank calls the same entry point with the same arguments.
 (a ``FileStore`` in a temporary directory joins them), calls
 ``fn(mesh, *args, **kwargs)`` on each and returns rank 0's result. Under
 ``torchrun`` (``WORLD_SIZE`` set in the environment) this process already is
-one rank: :func:`run` joins the group from the environment and returns this
-rank's result. A rank that raises makes the whole launch raise, and the
-other ranks are stopped.
+one rank: :func:`run` joins the group from the environment, returns this
+rank's result, and leaves the group it joined. A rank that raises makes
+the whole launch raise, and the other ranks are stopped.
 
 ``fn`` is pickled by reference, so it must be a module-level function;
 rank 0's result travels back through ``torch.save``/``torch.load`` of a
@@ -67,9 +67,16 @@ def run(fn, world_size: int, *args, backend: Optional[str] = None,
     ``device``: every rank's device (default ``cuda:(rank % cards)``)."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:       # under torchrun
         dev = _rank_device(device, int(os.environ.get("LOCAL_RANK", "0")))
+        joined = not dist.is_initialized()
         initialize_distributed(backend, device=device)
-        return fn(make_mesh(replica, model, device=dev),
-                  *args, **kwargs)
+        try:
+            return fn(make_mesh(replica, model, device=dev), *args, **kwargs)
+        finally:
+            if joined:
+                # as a spawned rank does: a gloo group still alive when the
+                # interpreter exits can abort the process there ("terminate
+                # called without an active exception")
+                dist.destroy_process_group()
     backend = resolve_backend(backend, world_size, device)
     with tempfile.TemporaryDirectory(prefix="maus_launch_") as workdir:
         mp.spawn(_rank_main, nprocs=world_size, join=True,

@@ -13,13 +13,11 @@ size.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
 from ..core.types import RANK_REL_CUT, ProblemKnowledge, ProblemType
-from ..ops.batched_solve import _want_rinv, invert_triangular
+from ..ops.batched_solve import factor_qr, solve_qr, solve_qr_adj
 from ..ops.kernels import residual
 from ..utils.metrics import span
 
@@ -83,8 +81,7 @@ def estimate_cond(A: np.ndarray, exact_below: int = 512, iters: int = 30) -> flo
 # ---------------------------------------------------------------------------
 
 def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
-                       inv_iters: int = 6, ir_steps: int = 10,
-                       with_rinv: Optional[bool] = None):
+                       inv_iters: int = 6, ir_steps: int = 10):
     """(σ_max, amplification g ≈ 1/σ_min², first-solve backward residual,
     final IR residual) from one working-dtype QR plus O(N²) iterations.
 
@@ -93,60 +90,39 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
     which keeps growing past the point where the inverse-power estimate
     floors at the factorization's accuracy.
 
-    The working solves go through an explicit R⁻¹ where ``with_rinv`` holds
-    (default: the engine's gate, a CUDA operand of N ≥ 1024): each is two
-    matrix-vector products in the working dtype, and R is dropped once R⁻¹
-    is built. Elsewhere they are triangular substitutions. Each FP64
-    residual is one K1 read of A, or of one conjugate-transposed copy Aᴴ in
-    the working dtype, and each IR step computes one."""
+    The working solves go through the linear path's QR bundle
+    (``ops/batched_solve.factor_qr``): A x = b by ``solve_qr`` and Aᴴ x = b
+    by ``solve_qr_adj``, each a product with R⁻¹ and Q or Qᴴ applied block
+    by block from the reflectors, and one captured graph on the card. Each
+    FP64 residual is one K1 read of A, or of one conjugate-transposed copy
+    Aᴴ in the working dtype, and each IR step computes one."""
     n = A.shape[0]
     dev = A.device
     rdt = A.real.dtype
     c128 = torch.complex128
-    if with_rinv is None:
-        with_rinv = _want_rinv(A)
-    g = torch.Generator(device=dev)
+    # both start vectors from one seeded host generator, drawn before any
+    # work is queued: every device starts from the same vectors, so the
+    # card's estimate is the CPU's up to rounding
+    g = torch.Generator()
     g.manual_seed(0)
+    x = torch.complex(torch.randn(n, generator=g, dtype=rdt),
+                      torch.randn(n, generator=g, dtype=rdt)).to(dev, A.dtype)
+    y = torch.complex(torch.randn(n, generator=g, dtype=torch.float64),
+                      torch.randn(n, generator=g, dtype=torch.float64)).to(dev)
 
     def vnorm(z):
         return torch.linalg.vector_norm(z)
 
     with span("maus.diagnose.cond.power"):
-        x = torch.complex(torch.randn(n, generator=g, dtype=rdt, device=dev),
-                          torch.randn(n, generator=g, dtype=rdt, device=dev)
-                          ).to(A.dtype)
         x = x / vnorm(x)
         for _ in range(power_iters):
             z = A.mH @ (A @ x)
             x = z / torch.clamp_min(vnorm(z), 1e-30)
         smax = torch.sqrt(vnorm(A.mH @ (A @ x)))
 
-    with span("maus.diagnose.cond.qr"):
-        q, r = torch.linalg.qr(A)
-
-    if with_rinv:
-        # conj(R⁻¹) is kept, so that every product reads Q, conj(R⁻¹) or a
-        # transposed view of either in place and only vectors are conjugated:
-        # with a conjugated view (``M.mH``) a product or a triangular solve
-        # may conjugate all of M first, and on the card some do (complex128
-        # products among them)
-        with span("maus.diagnose.cond.rinv"):
-            rinv_c = invert_triangular(r).conj_physical_()
-        del r
-
-        def qr_solve(b):        # A x = b: x = R⁻¹Qᴴb = conj(conj(R⁻¹)·Qᵀ·conj b)
-            return torch.conj_physical(rinv_c @ (q.T @ torch.conj_physical(b)))
-
-        def qr_solve_adj(b):    # Aᴴ x = b: x = Q·R⁻ᴴb = Q·conj(R⁻¹)ᵀ·b
-            return q @ (rinv_c.T @ b)
-    else:
-        def qr_solve(b):                # A x = b
-            y = (q.mH @ b[:, None])
-            return torch.linalg.solve_triangular(r, y, upper=True)[:, 0]
-
-        def qr_solve_adj(b):            # Aᴴ x = b
-            y = torch.linalg.solve_triangular(r.mH, b[:, None], upper=False)
-            return (q @ y)[:, 0]
+    # the QR builds the R⁻¹ that every solve of the probe goes through
+    with span("maus.diagnose.cond.qr"), span("maus.diagnose.cond.rinv"):
+        fac = factor_qr(A)
 
     Ah = A.mH.contiguous()
 
@@ -170,14 +146,12 @@ def _cond_probe_device(A: torch.Tensor, power_iters: int = 16,
         return xc, rel_first, nrc / bnorm
 
     with span("maus.diagnose.cond.inverse"):
-        y = torch.complex(torch.randn(n, generator=g, dtype=torch.float64, device=dev),
-                          torch.randn(n, generator=g, dtype=torch.float64, device=dev))
         zero = torch.zeros((), dtype=torch.float64, device=dev)
         gamp, rel_first, rel_final = zero + 1.0, zero, zero
         for _ in range(inv_iters):
             y = y / torch.clamp_min(vnorm(y), 1e-300)
-            u, rf1, rl1 = _ir(y, Ah, qr_solve_adj)
-            y, rf2, rl2 = _ir(u, A, qr_solve)
+            u, rf1, rl1 = _ir(y, Ah, lambda r: solve_qr_adj(fac, r))
+            y, rf2, rl2 = _ir(u, A, lambda r: solve_qr(fac, r))
             gamp = vnorm(y)
             # later right-hand sides align with the smallest singular
             # direction, which maximizes the ε·κ backward-residual signal

@@ -53,9 +53,8 @@ import torch
 from ..core.types import (CandidateStatus, Population, ProblemKnowledge,
                           ProblemType, SolverConfig, StrategyState,
                           initial_strategy)
-from ..ops.batched_solve import (CholFactors, QRFactors, QRReflectors,
-                                 _want_rinv, shared_factor_hpd, shared_factor_qr,
-                                 wy_block)
+from ..ops.batched_solve import (CholFactors, qr_template, shared_factor_hpd,
+                                 shared_factor_qr)
 from ..ops.hessenberg import HessCache, reduce_hessenberg_auto
 from ..ops.regularize import pow10, psi_magnitude
 from ..parallel.dist_hessenberg import dist_hessenberg, dist_solve_shifted
@@ -270,22 +269,14 @@ def _fac_template(knowledge: ProblemKnowledge, A: torch.Tensor):
     """The shared factorization's bundle with meta tensors of its shapes
     and dtypes in place of the O(N³) factors (this rank's (N, N/m) shards of
     a ``DistQR`` for a column-sharded A)."""
-    n = A.shape[-1]
-
-    def meta():
-        return torch.empty((n, n), dtype=A.dtype, device="meta")
-
     if isinstance(A, ColumnSharded):
         shard = A.local.shape
         return DistQR(torch.empty(shard, dtype=A.dtype, device="meta"),
                       torch.empty(shard, dtype=A.dtype, device="meta"))
     if knowledge.is_positive_definite:
-        return CholFactors(meta())
-    if _want_rinv(A):
-        nb = wy_block(n)
-        return QRReflectors(meta(), torch.empty((-(-n // nb), nb, nb), dtype=A.dtype,
-                                                device="meta"), meta())
-    return QRFactors(meta(), meta(), None)
+        n = A.shape[-1]
+        return CholFactors(torch.empty((n, n), dtype=A.dtype, device="meta"))
+    return qr_template(A.shape[-1], A.dtype)
 
 
 def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: torch.Tensor,

@@ -115,9 +115,11 @@ SPANS = (
     ("maus.diagnose.cond", "the on-device condition probe, through its host "
      "read"),
     ("maus.diagnose.cond.power", "the probe's power iteration (enqueue only)"),
-    ("maus.diagnose.cond.qr", "the probe's working-dtype QR (enqueue only)"),
-    ("maus.diagnose.cond.rinv", "the probe's explicit R⁻¹ from that QR, built "
-     "on the card for N ≥ 1024 (enqueue only)"),
+    ("maus.diagnose.cond.qr", "the probe's working-dtype QR, "
+     "ops/batched_solve.factor_qr (enqueue only)"),
+    ("maus.diagnose.cond.rinv", "the same QR, inside maus.diagnose.cond.qr: "
+     "it builds the R⁻¹ that every probe solve goes through (a count, once "
+     "a probe)"),
     ("maus.diagnose.cond.inverse", "the probe's inverse iteration with its "
      "refinement solves (enqueue only)"),
     ("maus.setup", "evolve's shared Hessenberg form or eigh "
@@ -131,9 +133,10 @@ SPANS = (
     ("maus.factor", "one shared factorization of the linear path: the "
      "engine's at init and on a Psi rung, or refinement's fresh QR (enqueue "
      "only)"),
-    ("maus.factor.implicit_q", "one shared factorization that keeps Q "
-     "implicit, inside maus.factor: geqrf in place, R⁻¹ from its upper "
-     "triangle, the blocks' compact-WY factors (a count, enqueue only)"),
+    ("maus.factor.implicit_q", "the QR of one shared factorization, inside "
+     "maus.factor: geqrf in place, R⁻¹ from its upper triangle, the blocks' "
+     "compact-WY factors; every QR of the engine and of refinement keeps Q "
+     "implicit (a count, enqueue only)"),
     ("maus.finish", "evolve's finish phase: leaders, finishers, host copies "
      "(timings['finish_s'])"),
     ("maus.refine.step", "one correction solve of plain refinement, through "

@@ -82,12 +82,15 @@ def test_apply_shift(n, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("with_rinv", [None, True])
 def test_shared_factor_qr_solutions(n, dtype, with_rinv):
+    """The port's one QR form (reflectors and R⁻¹) solves as each of the JAX
+    package's two forms does: its default on the CPU (``None``: an explicit
+    Q and triangular solves) and an explicit Q with R⁻¹."""
     A, b = _system(n)
     psi = 1e-6
     xj = bj.solve_qr(bj.shared_factor_qr(_j(A, dtype), psi, with_rinv=with_rinv),
                      _j(b, dtype))
-    fac = bt.shared_factor_qr(_t(A, dtype), psi, with_rinv=with_rinv)
-    assert (fac.rinv is not None) == bool(with_rinv)   # CPU: no R⁻¹ unless asked
+    fac = bt.shared_factor_qr(_t(A, dtype), psi)
+    assert isinstance(fac, bt.QRReflectors)
     xt = bt.solve_qr(fac, _t(b, dtype)).numpy()
     assert _rel(xt, xj) < _tol(dtype, A)
 
@@ -134,15 +137,18 @@ def test_lu_factor_solutions(n, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_batched_factors(dtype):
+    """A (K, N, N) batch: the LU factors it whole; the port's QR takes one
+    operand at a time and solves as the JAX package's batched QR does."""
     K, n = 3, 64
     As, bs = zip(*(_system(n, seed=s) for s in range(K)))
     A = np.stack(As)
     b = np.stack(bs)
     tol = max(_tol(dtype, a) for a in As)
-    for fj, sj, ft, st in ((bj.factor_qr, bj.solve_qr, bt.factor_qr, bt.solve_qr),
-                           (bj.factor, bj.solve_factored, bt.factor,
-                            bt.solve_factored)):
-        xj = np.asarray(sj(fj(_j(A, dtype)), _j(b, dtype)))
-        xt = st(ft(_t(A, dtype)), _t(b, dtype)).numpy()
-        assert xt.shape == (K, n)
-        assert _rel(xt, xj) < tol
+    xj = np.asarray(bj.solve_factored(bj.factor(_j(A, dtype)), _j(b, dtype)))
+    xt = bt.solve_factored(bt.factor(_t(A, dtype)), _t(b, dtype)).numpy()
+    assert xt.shape == (K, n)
+    assert _rel(xt, xj) < tol
+    xj = np.asarray(bj.solve_qr(bj.factor_qr(_j(A, dtype)), _j(b, dtype)))
+    xt = np.stack([bt.solve_qr(bt.factor_qr(_t(a, dtype)), _t(bb, dtype)).numpy()
+                   for a, bb in zip(As, bs)])
+    assert _rel(xt, xj) < tol

@@ -136,11 +136,11 @@ def test_load_refuses_a_mismatched_leaf(change, tmp_path):
     elif change == "missing":
         del arrays["stall_count"]
     else:
-        arrays["fac.rinv"] = arrays["fac.r"]
+        arrays["fac.q"] = arrays["fac.v"]
     np.savez(path, **arrays)
     with pytest.raises(ValueError, match={"shape": "shape", "dtype": "dtype",
                                           "missing": "stall_count",
-                                          "extra": "fac.rinv"}[change]):
+                                          "extra": "fac.q"}[change]):
         checkpoint.load_state(path, template, device="cpu")
 
 

@@ -1,15 +1,16 @@
-"""The shared QR without an explicit Q (``ops/batched_solve.QRReflectors``).
+"""The linear path's one QR form (``ops/batched_solve.QRReflectors``).
 
-On a CUDA operand of N ≥ 1024 the linear path's shared factorization keeps
-geqrf's Householder vectors and applies Qᴴ block by block from their
-compact-WY factors; elsewhere it forms Q (``torch.linalg.qr``). Here the
-implicit form is forced on the CPU (``factor_qr(..., implicit=True)``, or
-the gate patched for a whole solve) and held to the explicit one: Qᴴ·b and
-the solutions agree to the working precision, the blocks' T reproduce
+Every single-operand QR of the port, the engine's, refinement's and the
+condition probe's, on the CPU and on the card and at every N, keeps geqrf's
+Householder vectors with R⁻¹ and applies Qᴴ (or Q, for a solve by Aᴴ)
+block by block from their compact-WY factors. Here the bundle is held to
+an explicit Q from ``torch.linalg.qr``: Qᴴ·b, the solutions by A and by Aᴴ
+agree to the working precision, the blocks' T reproduce
 ``torch.linalg.householder_product``, refinement takes the explicit
-bundle's number of steps, and a carry holding the bundle survives a
-checkpoint bit for bit. The ``cuda``-marked test runs on the card without
-JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_qr_implicit.py``.
+bundle's number of steps, a solver and its checkpoint template take the
+bundle with nothing patched, and a carry holding it survives a checkpoint
+bit for bit. The ``cuda``-marked test runs on the card without JAX:
+``python -m pytest --noconftest -m cuda tests/test_torch_qr_implicit.py``.
 """
 import numpy as np
 import pytest
@@ -50,7 +51,13 @@ def _rel(a, b):
 
 def _implicit(A, nb, monkeypatch):
     monkeypatch.setattr(bs, "wy_block", lambda n: nb)
-    return bs.factor_qr(A, implicit=True)
+    return bs.factor_qr(A)
+
+
+def _explicit(A):
+    """The explicit-Q bundle of A, with R⁻¹, from ``torch.linalg.qr``."""
+    q, r = torch.linalg.qr(A)
+    return bs.QRFactors(q, r, bs.invert_triangular(r))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -58,8 +65,8 @@ def _implicit(A, nb, monkeypatch):
 def test_implicit_bundle_solves_as_the_explicit_q_does(n, nb, dtype, monkeypatch):
     A = _operand(n, dtype)
     fac = _implicit(A, nb, monkeypatch)
-    ref = bs.factor_qr(A, with_rinv=True)
-    assert isinstance(fac, bs.QRReflectors) and isinstance(ref, bs.QRFactors)
+    ref = _explicit(A)
+    assert isinstance(fac, bs.QRReflectors)
     assert fac.t.shape == (-(-n // nb), nb, nb)
     tol = 20 * _eps(dtype) * n ** 0.5
     for shape in ((n,), (3, n), (2, 2, n)):
@@ -71,6 +78,29 @@ def test_implicit_bundle_solves_as_the_explicit_q_does(n, nb, dtype, monkeypatch
         assert _rel(x, bs.solve_qr(ref, b)) < tol * torch.linalg.cond(A).item()
         qh = bs.QRReflectors(fac.v, fac.t, torch.eye(n, dtype=dtype))
         assert _rel(bs.solve_qr(qh, b), (ref.q.mH @ b.reshape(-1, n).mT).mT.reshape(shape)) < tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,nb", SHAPES)
+def test_adjoint_solve_is_q_times_r_inverse_adjoint(n, nb, dtype, monkeypatch):
+    """``solve_qr_adj`` gives x = Q·R⁻ᴴ·b, the solve by Aᴴ, as an explicit Q
+    and R from ``torch.linalg.qr`` give it, and Q·b alone with R⁻¹ = I."""
+    A = _operand(n, dtype, seed=9)
+    fac = _implicit(A, nb, monkeypatch)
+    q, r = torch.linalg.qr(A)
+    tol = 20 * _eps(dtype) * n ** 0.5
+    for shape in ((n,), (3, n), (2, 2, n)):
+        b = _rhs(shape, dtype, seed=4)
+        b0 = b.clone()
+        x = bs.solve_qr_adj(fac, b)
+        assert torch.equal(b, b0)
+        assert x.shape == b.shape
+        B = b.reshape(-1, n).mT
+        want = q @ torch.linalg.solve_triangular(r.mH, B, upper=False)
+        assert _rel(x, want.mT.reshape(shape)) < tol * torch.linalg.cond(A).item()
+        assert _rel((A.mH @ x.reshape(-1, n).mT).mT.reshape(shape), b) < tol * 10
+        q_only = bs.QRReflectors(fac.v, fac.t, torch.eye(n, dtype=dtype))
+        assert _rel(bs.solve_qr_adj(q_only, b), (q @ B).mT.reshape(shape)) < tol
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -107,7 +137,7 @@ def test_a_reflector_with_tau_zero(dtype, monkeypatch):
     assert torch.isfinite(torch.view_as_real(fac.t)).all()
     b = _rhs((n,), dtype)
     x = bs.solve_qr(fac, b)
-    assert _rel(x, bs.solve_qr(bs.factor_qr(A, with_rinv=True), b)) < \
+    assert _rel(x, bs.solve_qr(_explicit(A), b)) < \
         100 * _eps(dtype) * torch.linalg.cond(A).item()
 
 
@@ -125,19 +155,31 @@ def test_rinv_reads_only_geqrfs_upper_triangle(dtype):
     a, _ = torch.geqrf(A)
     rinv = bs.invert_triangular(a)
     assert torch.equal(bs.invert_triangular(_nan_below(a)), rinv)
-    assert torch.equal(bs.factor_qr(A, implicit=True).rinv, rinv)
+    assert torch.equal(bs.factor_qr(A).rinv, rinv)
     assert _rel(rinv, bs.invert_triangular(torch.linalg.qr(A)[1])) < 20 * _eps(dtype)
 
 
-def test_the_cpu_and_batched_operands_keep_the_explicit_q():
-    A = _operand(64, torch.complex64)
-    assert isinstance(bs.factor_qr(A), bs.QRFactors)
-    assert isinstance(bs.shared_factor_qr(A, 1e-6), bs.QRFactors)
-    assert isinstance(bs.factor_qr(torch.stack([A, A])), bs.QRFactors)
-    with pytest.raises(ValueError):
-        bs.factor_qr(A, with_rinv=False, implicit=True)
-    with pytest.raises(ValueError):
-        bs.factor_qr(torch.stack([A, A]), implicit=True)
+@pytest.mark.parametrize("n", [64, 1100])
+def test_the_cpu_takes_the_one_form_at_every_n(n):
+    """On the CPU, below the card's old gate of N = 1024 and above it, the
+    probe's QR, the shared QR and ``init_carry``'s checkpoint template are
+    all the one bundle, with nothing patched."""
+    from maus_tpu_torch.core.types import ProblemKnowledge, SolverConfig
+    from maus_tpu_torch.solver import evolve
+
+    A = _operand(n, torch.complex64)
+    nb = bs.wy_block(n)
+    for fac in (bs.factor_qr(A), bs.shared_factor_qr(A, 1e-6)):
+        assert isinstance(fac, bs.QRReflectors)
+        assert (fac.v.shape, fac.t.shape) == ((n, n), (-(-n // nb), nb, nb))
+    template = evolve.init_carry(SolverConfig(dtype=A.dtype),
+                                 ProblemKnowledge(shape=(n, n)), A, seed=0,
+                                 template=True)
+    assert type(template.fac) is bs.QRReflectors
+    assert [getattr(template.fac, f).shape for f in ("v", "t", "rinv")] == \
+        [(n, n), (-(-n // nb), nb, nb), (n, n)]
+    assert all(getattr(template.fac, f).is_meta for f in ("v", "t", "rinv"))
+    assert bs.qr_template(n, A.dtype).t.shape == template.fac.t.shape
 
 
 @pytest.mark.parametrize("n,block", [(64, 64), (1024, 128), (2048, 256), (4096, 512),
@@ -146,10 +188,12 @@ def test_wy_block_is_a_few_dozen_blocks(n, block):
     assert bs.wy_block(n) == block
 
 
-def test_shared_factor_shifts_as_the_explicit_form(monkeypatch):
+def test_shared_factor_shifts_as_the_explicit_form():
+    from maus_tpu_torch.ops.regularize import apply_shift
+
     A = _operand(128, torch.complex128)
-    fac = bs.shared_factor_qr(A, 0.25, implicit=True)
-    ref = bs.shared_factor_qr(A, 0.25, with_rinv=True)
+    fac = bs.shared_factor_qr(A, 0.25)
+    ref = _explicit(apply_shift(A, 0.25))
     b = _rhs((128,), torch.complex128)
     assert _rel(bs.solve_qr(fac, b), bs.solve_qr(ref, b)) < 1e-12
     assert _rel(bs.solve_any(fac, b), bs.solve_any(ref, b)) < 1e-12
@@ -163,7 +207,7 @@ def test_refine_split_takes_the_explicit_bundles_steps(monkeypatch):
     b = b.to(torch.complex128)
     steps = {}
     for implicit in (False, True):
-        fac = bs.factor_qr(A, with_rinv=True, implicit=implicit)
+        fac = bs.factor_qr(A) if implicit else _explicit(A)
         calls = []
 
         def counted(f, r, calls=calls):
@@ -178,15 +222,12 @@ def test_refine_split_takes_the_explicit_bundles_steps(monkeypatch):
     assert abs(steps[True] - steps[False]) <= 1
 
 
-def _forced_solver(monkeypatch, n=96):
-    """A linear MausSolver on the CPU whose shared factorizations take the
-    implicit form, as they do on the card at N ≥ 1024."""
-    from maus_tpu_torch.solver import evolve
+def _solver(n=96):
+    """A linear MausSolver on the CPU, as it is: its shared factorizations
+    take the one form there as on the card."""
     from maus_tpu_torch.solver.api import MausSolver
     from maus_tpu_torch.core.types import ProblemKnowledge, ProblemType
 
-    monkeypatch.setattr(bs, "_want_rinv", lambda H: H.ndim == 2)
-    monkeypatch.setattr(evolve, "_want_rinv", lambda H: H.ndim == 2)
     A, b = _system(n)
     kn = ProblemKnowledge(shape=(n, n), cond_estimate=1e3)
     return MausSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM, b_vector=b,
@@ -200,11 +241,11 @@ def _system(n):
     return A.numpy(), b.numpy()
 
 
-def test_checkpoint_round_trip_of_the_implicit_bundle(monkeypatch, tmp_path):
+def test_checkpoint_round_trip_of_the_implicit_bundle(tmp_path):
     from maus_tpu_torch.solver import evolve
     from maus_tpu_torch.utils import checkpoint
 
-    solver = _forced_solver(monkeypatch)
+    solver = _solver()
     carry = evolve.init_carry(solver.config, solver.knowledge, solver.A, seed=11)
     template = evolve.init_carry(solver.config, solver.knowledge, solver.A, seed=11,
                                  template=True)
@@ -224,13 +265,13 @@ def test_checkpoint_round_trip_of_the_implicit_bundle(monkeypatch, tmp_path):
     assert torch.equal(bs.solve_any(loaded.fac, b), bs.solve_any(carry.fac, b))
 
 
-def test_a_forced_solve_counts_one_implicit_q_per_factorization(monkeypatch):
-    """Every shared factorization of a solve takes the implicit form and
-    opens one ``maus.factor.implicit_q`` inside its ``maus.factor``; the
-    answer is certified as the explicit form's is."""
+def test_a_forced_solve_counts_one_implicit_q_per_factorization():
+    """Every shared factorization of a solve, refinement's included, takes
+    the one form and opens one ``maus.factor.implicit_q`` inside its
+    ``maus.factor``; the answer is certified."""
     from maus_tpu_torch.utils import metrics
 
-    solver = _forced_solver(monkeypatch)
+    solver = _solver()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         report = solver.evolve(30)
     events = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
@@ -251,16 +292,18 @@ def test_a_forced_solve_counts_one_implicit_q_per_factorization(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1024, 2048])
 def test_the_card_takes_the_implicit_form(n):
+    """On the card a one-vector solve by A and one by Aᴴ each replay a
+    captured graph of the bundle's own, and agree with the eager solves of a
+    batch and with an explicit Q."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from maus_tpu_torch.benchmarks.common import make_system
 
     kappa = 1e4
     A, b = make_system(n, kappa, 3, torch.device("cuda"))
-    assert bs._want_rinv(A)
     fac = bs.shared_factor_qr(A, 0.0)
-    ref = bs.shared_factor_qr(A, 0.0, implicit=False)
-    assert isinstance(fac, bs.QRReflectors) and isinstance(ref, bs.QRFactors)
+    ref = _explicit(A)
+    assert isinstance(fac, bs.QRReflectors)
     assert _rel(bs.solve_qr(fac, b), bs.solve_qr(ref, b)) <= 10 * _eps(A.dtype) * kappa
     big = [t for t in (fac.v, fac.t, fac.rinv) if t.numel() >= n * n]
     assert len(big) <= 2
@@ -269,5 +312,11 @@ def test_the_card_takes_the_implicit_form(n):
     assert fac.graph is not None
     assert torch.equal(bs.solve_qr(fac, b), x)  # a replay
     assert _rel(bs.solve_qr(fac, b[None])[0], x) < 10 * _eps(A.dtype)
+    y = bs.solve_qr_adj(fac, b)                 # the adjoint graph's first solve
+    assert fac.graph_adj is not None and fac.graph_adj is not fac.graph
+    assert torch.equal(bs.solve_qr_adj(fac, b), y)
+    assert _rel(bs.solve_qr_adj(fac, b[None])[0], y) < 10 * _eps(A.dtype)
+    want = ref.q @ torch.linalg.solve_triangular(ref.r.mH, b[:, None], upper=False)[:, 0]
+    assert _rel(y, want) <= 10 * _eps(A.dtype) * kappa
     a, _ = torch.geqrf(A)
     assert torch.equal(bs.invert_triangular(_nan_below(a)), bs.invert_triangular(a))

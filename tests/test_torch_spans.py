@@ -96,8 +96,8 @@ LINEAR = ("solve", "known_cond", "update_problem")
 SHARED = {"maus.entry", "maus.setup", "maus.engine", "maus.engine.init",
           "maus.engine.iteration", "maus.finish"}
 PROBE = {"maus.diagnose.cond", "maus.diagnose.cond.power", "maus.diagnose.cond.qr",
-         "maus.diagnose.cond.inverse"}
-LINEAR_ONLY = {"maus.factor", "maus.refine.step"}
+         "maus.diagnose.cond.rinv", "maus.diagnose.cond.inverse"}
+LINEAR_ONLY = {"maus.factor", "maus.factor.implicit_q", "maus.refine.step"}
 # the eigenpair finisher's chunks; the straggler round is not expected
 EIG_FINISH = {"maus.refine_eig.round"}
 EXPECTED = {"solve": SHARED | PROBE | LINEAR_ONLY,
@@ -170,6 +170,8 @@ def test_spans_nest_as_the_layers_do(run):
         assert _inside(step, [finish])
     for fac in sp.get("maus.factor", []):
         assert _inside(fac, [init] + sp["maus.engine.iteration"] + [finish])
+    for qr in sp.get("maus.factor.implicit_q", []):
+        assert _inside(qr, sp["maus.factor"])
     for panel in sp.get("maus.hessenberg.panel", []):
         assert _inside(panel, [setup])
     for rnd in sp.get("maus.refine_eig.round", []) + sp.get("maus.eig.straggler", []):
@@ -182,7 +184,9 @@ def test_iteration_spans_count_the_iterations(run):
     assert len(_spans(events, "maus.engine.iteration")) == report.iterations >= 1
     assert len(_spans(events, "maus.engine.init")) == 1
     if run in LINEAR:
-        assert len(_spans(events, "maus.factor")) >= 1
+        # every shared factorization, on the CPU too, is the one QR form
+        assert len(_spans(events, "maus.factor")) == \
+            len(_spans(events, "maus.factor.implicit_q")) >= 1
         assert len(_spans(events, "maus.refine.step")) >= 1
     if run == "update_problem":
         assert len(_spans(events, "maus.entry")) == 2
@@ -212,29 +216,28 @@ def test_spans_lists_every_name_emitted(run):
     assert all(doc and "\n" not in doc for _, doc in metrics.SPANS)
 
 
-@pytest.mark.parametrize("with_rinv", [True, False])
-def test_probe_opens_the_rinv_span_in_its_rinv_form_only(with_rinv):
-    """The probe's explicit R⁻¹ (its form on the card at N ≥ 1024, forced
-    here on the CPU) runs in one declared span ``maus.diagnose.cond.rinv``
-    between the QR and the inverse iteration; the triangular form opens
-    none. The probe never opens the engine's ``maus.factor``."""
+def test_probe_opens_the_rinv_span_in_its_rinv_form_only():
+    """The probe's QR builds the R⁻¹ that all its solves go through, in one
+    declared span ``maus.diagnose.cond.rinv`` inside
+    ``maus.diagnose.cond.qr``, before the inverse iteration. The probe never
+    opens the engine's ``maus.factor`` or ``maus.factor.implicit_q``."""
     from maus_tpu_torch.solver import diagnose
 
     A, _ = _linear_operands()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with metrics.span("maus.diagnose.cond"):
-            diagnose._cond_probe_device(A, with_rinv=with_rinv)
+            diagnose._cond_probe_device(A)
     events = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
               for ev in prof.profiler.kineto_results.events()
               if ev.name().startswith("maus.")]
     sp = {n: [(s, e) for m, s, e in events if m == n] for n, _, _ in events}
     assert "maus.diagnose.cond.rinv" in {n for n, _ in metrics.SPANS}
-    assert "maus.factor" not in sp
+    assert "maus.factor" not in sp and "maus.factor.implicit_q" not in sp
     rinv = sp.get("maus.diagnose.cond.rinv", [])
-    assert len(rinv) == int(with_rinv)
+    assert len(rinv) == len(sp["maus.diagnose.cond.qr"]) == 1
     for s, e in rinv:
         assert _inside((s, e), sp["maus.diagnose.cond"])
-        assert sp["maus.diagnose.cond.qr"][0][1] <= s
+        assert _inside((s, e), sp["maus.diagnose.cond.qr"])
         assert e <= sp["maus.diagnose.cond.inverse"][0][0]
 
 
