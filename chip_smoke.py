@@ -535,6 +535,89 @@ def check_lu(lu, H, gen, label, c=10.0):
     return out
 
 
+def ls_backward_error(H, X, B):
+    """max over the batch and columns of ‖H·x − b‖/(‖H‖_F·‖x‖ + ‖b‖) in
+    complex128, a matrix at a time."""
+    import torch
+
+    worst = 0.0
+    for k in range(H.shape[0]):
+        Hk = H[k].to(torch.complex128)
+        xk, bk = X[k].to(torch.complex128), B[k].to(torch.complex128)
+        r = torch.linalg.vector_norm(Hk @ xk - bk, dim=0)
+        den = torch.linalg.matrix_norm(Hk) * torch.linalg.vector_norm(xk, dim=0) \
+            + torch.linalg.vector_norm(bk, dim=0)
+        worst = max(worst, float((r / den).max()))
+        del Hk
+    return worst
+
+
+def phase8_lu_solve(lu, lu_solve, He, gen):
+    """Kernel LS on P4's factors of the shifted eig matrices He (the
+    finisher's chunk, complex64) and of its first half in complex128 (the
+    straggler round's chunk of 4): the permutation against the plain one;
+    for R = 1 and 2 the solution against the plain version and
+    torch.linalg.lu_solve by the normwise backward error (the kernel's at
+    most twice the library's and within 10·√N·ε), R = 2 equal to the bit to
+    two R = 1 solves; times in turns beside the library call and the bytes'
+    bound (each factor read once). Returns the row of (8, 4096) complex64,
+    R = 2."""
+    import torch
+
+    rows = {}
+    for dtype, H in ((torch.complex64, He),
+                     (torch.complex128, He[: He.shape[0] // 2].to(torch.complex128))):
+        K, N = H.shape[0], H.shape[-1]
+        f, piv = lu.lu_factor(H)
+        perm = lu_solve.lu_perm(f, piv)
+        t_perm = time_ms(lambda: lu_solve.lu_perm(f, piv), reps=5)
+        if not torch.equal(perm, lu_solve.lu_perm_plain(piv)):
+            raise AssertionError(f"LS ({K}, {N}) {dtype}: the permutation differs from "
+                                 f"the plain one")
+        bar = 10 * math.sqrt(N) * torch.finfo(H.real.dtype).eps
+        for R in (1, 2):
+            B = cnormal(gen, (K, N, R), dtype, H.device)
+            X = lu_solve.lu_solve(f, perm, B)
+            Xp = lu_solve.lu_solve_plain(f, perm, B)
+            Xl = torch.linalg.lu_solve(f, piv, B)
+            torch.cuda.synchronize()
+            berr, berr_p, berr_l = (ls_backward_error(H, Z, B) for Z in (X, Xp, Xl))
+            rel = float((X - Xp).abs().max() / Xp.abs().max())
+            if not (berr <= 2 * berr_l and berr <= bar):
+                raise AssertionError(f"LS ({K}, {N}, {R}) {dtype}: backward error "
+                                     f"{berr:.3e}, torch.linalg.lu_solve {berr_l:.3e}, "
+                                     f"bar {bar:.3e}")
+            if R == 2:
+                apart = torch.stack([lu_solve.lu_solve(f, perm, B[..., c].contiguous())
+                                     for c in range(2)], -1)
+                if not torch.equal(apart, X):
+                    raise AssertionError(f"LS ({K}, {N}) {dtype}: two columns differ "
+                                         f"from two one-column solves")
+            turns = {"kernel": [], "library": []}
+            for _ in range(2):
+                turns["kernel"].append(time_ms(lambda: lu_solve.lu_solve(f, perm, B),
+                                               reps=10))
+                turns["library"].append(time_ms(
+                    lambda: torch.linalg.lu_solve(f, piv, B), reps=3))
+            t_plain = time_ms(lambda: lu_solve.lu_solve_plain(f, perm, B), reps=2)
+            nbytes = K * N * N * f.element_size() + 2 * K * N * R * f.element_size()
+            bnd = nbytes / HBM_BYTES_PER_S * 1e3
+            rows[(dtype, R)] = dict(ms=turns["kernel"][0], plain_ms=t_plain,
+                                    library_ms=turns["library"][0], bound_ms=bnd,
+                                    bound_by="bytes", max_abs_err=rel)
+            say(8, f"LS ({K}, {N}) {str(dtype)[6:]}, R = {R}: backward error kernel "
+                   f"{berr:.3e}, plain {berr_p:.3e}, torch.linalg.lu_solve {berr_l:.3e} "
+                   f"(bar {bar:.3e}); max|Δ|/max|x| vs plain {rel:.3e}; in turns, "
+                   f"kernel {[round(t, 4) for t in turns['kernel']]} ms, "
+                   f"torch.linalg.lu_solve {[round(t, 4) for t in turns['library']]} "
+                   f"ms; plain {t_plain:.2f} ms; bound {bnd:.4f} ms (bytes, "
+                   f"{100 * bnd / turns['kernel'][0]:.1f}% of it); lu_perm "
+                   f"{t_perm:.4f} ms once a factorization")
+            del B, X, Xp, Xl
+        del f, piv, perm
+    return rows[(torch.complex64, 2)]
+
+
 def p4_breakdown(lu, H):
     """The device time of one lu.lu_factor(H) by kernel name, in ms, from
     torch.profiler's trace of the card; "not measured" where the trace
@@ -1768,7 +1851,7 @@ def main():
     import maus_tpu_torch
     from maus_tpu_torch import cli
     from maus_tpu_torch.ops import hessenberg, lanczos
-    from maus_tpu_torch.ops.kernels import build, cgemm, hess_solve, lu, residual
+    from maus_tpu_torch.ops.kernels import build, cgemm, hess_solve, lu, lu_solve, residual
 
     def reset_counts():
         residual.LAUNCHES = hess_solve.LAUNCHES = cgemm.LAUNCHES = 0
@@ -1778,6 +1861,7 @@ def main():
         hess_solve.LAUNCHES_V2_ROWLOOP = hess_solve.LAUNCHES_V3_ROWLOOP = 0
         hess_solve.LAUNCHES_SWEEP = hess_solve.LAUNCHES_BACK = 0
         lu.LAUNCHES = lu.PANEL_LAUNCHES = lu.CLUSTER_PANEL_LAUNCHES = 0
+        lu_solve.LAUNCHES = lu_solve.PERM_LAUNCHES = 0
         lanczos.CALLS = 0
 
     def counts():
@@ -1790,7 +1874,17 @@ def main():
                     P3_panel=lu.PANEL_LAUNCHES, P3_cluster=lu.CLUSTER_PANEL_LAUNCHES,
                     P4_blocked=lu.LAUNCHES,
                     K3=cgemm.LAUNCHES, K3_simt=cgemm.LAUNCHES_SIMT,
+                    LS=lu_solve.LAUNCHES, LS_perm=lu_solve.PERM_LAUNCHES,
                     lanczos_calls=lanczos.CALLS)
+
+    def check_ls_counts(c, label):
+        """Every finisher factorization had its pivots made a permutation
+        once and was solved against 7 times by kernel LS (2 pre-sweeps and 5
+        Newton steps, a step's two columns in one launch)."""
+        if not (c["LS_perm"] > 0 and c["LS"] == 7 * c["LS_perm"]):
+            raise AssertionError(f"{label}: kernel LS launched {c['LS']} times for "
+                                 f"{c['LS_perm']} permutations (want 7 a "
+                                 f"permutation)")
 
     def check_k3_counts(c, n, label):
         """Every trailing update of the path's LUs (⌈n/64⌉ − 1 a
@@ -2236,6 +2330,7 @@ def main():
     check_k3_counts(eig_counts, EIG_N, f"{EIG_N}² eig")
     eig_launches = eig_counts["K2"]
     say(6, f"launches on the eig path: {eig_counts}")
+    check_ls_counts(eig_counts, f"{EIG_N}² eig")
     if eig_counts["P4_blocked"] <= 0 or eig_counts["P3_cluster"] <= 0:
         raise AssertionError(f"the eig finisher ran the blocked LU (P4) "
                              f"{eig_counts['P4_blocked']} and the cluster panel "
@@ -2526,6 +2621,7 @@ def main():
             say(8, f"the cluster panel at ({LU_BATCH}, {N}) is not both faster than "
                    f"torch.linalg.lu_factor and 5× faster than the one-block kernel")
         del pk, panel, panel_out
+    ls_row = phase8_lu_solve(lu, lu_solve, He, gen)
     del Hg, He
     torch.cuda.empty_cache()
     # P3's own measured range: the whole unblocked LU (one panel over all N)
@@ -2586,6 +2682,7 @@ def main():
     svd_counts = counts()
     check_k3_counts(svd_counts, SVD_N, f"{SVD_M}×{SVD_N} svd")
     say(9, f"launches on the SVD path: {svd_counts}")
+    check_ls_counts(svd_counts, f"{SVD_M}×{SVD_N} svd")
     for name in ("P3_cluster", "P4_blocked", "K3"):
         if svd_counts[name] <= 0:
             raise AssertionError(f"the SVD path launched {name} {svd_counts[name]} "
@@ -2787,7 +2884,13 @@ def main():
         "plain_ms": lu_rows[EIG_N]["plain_ms"],
         "bound_ms": lu_rows[EIG_N]["bound_ms"],
         "bound_by": lu_rows[EIG_N]["bound_by"],
-        "library_ms": lu_rows[EIG_N]["library_ms"]}]}), flush=True)
+        "library_ms": lu_rows[EIG_N]["library_ms"]}, {
+        "name": "lu_solve", "route": "cuda", "source": "maus_tpu_torch/csrc/lu_solve.cu",
+        "replaces": None, "launches": eig_counts["LS"],
+        "max_abs_err": ls_row["max_abs_err"], "ms": ls_row["ms"],
+        "plain_ms": ls_row["plain_ms"], "bound_ms": ls_row["bound_ms"],
+        "bound_by": ls_row["bound_by"], "library_ms": ls_row["library_ms"]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("true_residual.cu", "hess_solve_rq.cu", "hess_solve.cu",
            "hess_solve_v2.cu", "hess_solve_v3.cu", "hess_stream_v2.cu",
-           "hess_stream_v3.cu", "cgemm.cu", "cgemm_tc.cu", "lu.cu")
+           "hess_stream_v3.cu", "cgemm.cu", "cgemm_tc.cu", "lu.cu", "lu_solve.cu")
 HEADERS = ("hess_common.cuh", "hess_blocked.cuh", "hess_stream.cuh", "cgemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -121,6 +121,8 @@ def library() -> ctypes.CDLL:
                     ("maus_lu_cluster_occupancy", [i32] * 4 + [ptr]),
                     ("maus_lu_factor", [ptr, ptr] + [i32] * 4 + [ptr, ptr]),
                     ("maus_lu_cluster_barrier", [i32] * 3 + [ptr]),
+                    ("maus_lu_perm", [ptr, ptr, i32, i32, ptr]),
+                    ("maus_lu_solve", [ptr] * 6 + [i32] * 4 + [ptr]),
                     ("maus_hess_solve_rq", [ptr] * 7 + [i32] * 5 + [ptr]),
                     ("maus_hess_rq_step_floor", [i32] * 4 + [ptr, ptr])):
                 fn = getattr(lib, name)

@@ -22,7 +22,9 @@ split-f64 planes and sliced matvecs exist because the TPU has no complex128.
 Its ``_percand_shifted_solver`` picks between a vmapped LU, a mapped LU and
 a mapped QR to stay under XLA:TPU's scoped-VMEM cap; here every chunk is one
 batched factorization by the port's LU (``ops/kernels/lu.lu_factor``:
-kernels P3, P4 and K3 on the card).
+kernels P3, P4 and K3 on the card), and every solve against it one launch
+of kernel LS (``ops/kernels/lu_solve``), which reads each factor once: a
+Newton step's two right-hand sides, H⁻¹v and H⁻¹r, go in one call.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import math
 
 import torch
 
+from ..utils.metrics import span
 from .kernels.lu import lu_factor
+from .kernels.lu_solve import lu_perm, lu_solve
 
 C128 = torch.complex128
 
@@ -38,15 +42,20 @@ C128 = torch.complex128
 def _percand_shifted_solver(M: torch.Tensor, diag: torch.Tensor):
     """Factor H_k = M + diag(d_k) for every row d_k of ``diag`` (K, N) (or
     a (K, 1) column, one shift per candidate) in one batched LU, and return
-    ``solve(B: (K, N)) -> (K, N)`` against the K factorizations."""
+    ``solve(B) -> X`` against the K factorizations, for B of shape (K, N)
+    or (K, N, 2) (two columns in one read of the factors). The pivots become
+    a permutation once, here; each solve is one ``maus.refine_eig.solve``
+    span."""
     K, N = diag.shape[0], M.shape[-1]
     H = M.expand(K, N, N).clone()
     H.diagonal(dim1=-2, dim2=-1).add_(diag)
     lu, piv = lu_factor(H)
     del H
+    perm = lu_perm(lu, piv)
 
     def solve(B):
-        return torch.linalg.lu_solve(lu, piv, B.unsqueeze(-1)).squeeze(-1)
+        with span("maus.refine_eig.solve"):
+            return lu_solve(lu, perm, B)
     return solve
 
 
@@ -96,8 +105,8 @@ def _bordered_newton(smv, solve, V: torch.Tensor, lam_init: torch.Tensor,
         blam = torch.where(cur_better, lam_new, blam)
         brn = torch.where(cur_better, rn, brn)
         Vc = V.to(cdtype)
-        u1 = solve(Vc)                            # H⁻¹ v
-        u2 = solve(r.to(cdtype))                  # H⁻¹ r
+        U = solve(torch.stack([Vc, r.to(cdtype)], -1))
+        u1, u2 = U[..., 0], U[..., 1]             # H⁻¹ v, H⁻¹ r
         num = _dot(Vc, u2)
         den = _dot(Vc, u1)
         den = torch.where(den.abs() > 1e-30, den, torch.ones_like(den))

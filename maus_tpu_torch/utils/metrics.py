@@ -144,6 +144,9 @@ SPANS = (
     ("maus.refine.gmres", "the GMRES-IR fallback of linear refinement"),
     ("maus.refine_eig.round", "one eigenpair finisher call over a chunk of "
      "leaders (a batched LU, Newton steps), through its host read"),
+    ("maus.refine_eig.solve", "one solve of a finisher (eigenpairs or "
+     "triplets) against its chunk's LU factors, one or two columns in one "
+     "read of the factors (a count, enqueue only)"),
     ("maus.eig.straggler", "one leader that the working-dtype finisher "
      "rounds left above tol, taken on by the complex128 round (a count)"),
 )

@@ -98,14 +98,16 @@ SHARED = {"maus.entry", "maus.setup", "maus.engine", "maus.engine.init",
 PROBE = {"maus.diagnose.cond", "maus.diagnose.cond.power", "maus.diagnose.cond.qr",
          "maus.diagnose.cond.rinv", "maus.diagnose.cond.inverse"}
 LINEAR_ONLY = {"maus.factor", "maus.factor.implicit_q", "maus.refine.step"}
-# the eigenpair finisher's chunks; the straggler round is not expected
-EIG_FINISH = {"maus.refine_eig.round"}
+# the eigenpair finisher's chunks and its solves; the straggler round is not
+# expected
+EIG_FINISH = {"maus.refine_eig.round", "maus.refine_eig.solve"}
 EXPECTED = {"solve": SHARED | PROBE | LINEAR_ONLY,
             "known_cond": SHARED | LINEAR_ONLY,
             "update_problem": SHARED | PROBE | LINEAR_ONLY,
             "eig": SHARED | PROBE | EIG_FINISH,
             "eig_panels": SHARED | PROBE | EIG_FINISH | {"maus.hessenberg.panel"},
-            "eig_hermitian": SHARED | EIG_FINISH, "svd": SHARED}
+            "eig_hermitian": SHARED | EIG_FINISH,
+            "svd": SHARED | {"maus.refine_eig.solve"}}
 
 _CACHE = {}
 
@@ -176,6 +178,8 @@ def test_spans_nest_as_the_layers_do(run):
         assert _inside(panel, [setup])
     for rnd in sp.get("maus.refine_eig.round", []) + sp.get("maus.eig.straggler", []):
         assert _inside(rnd, [finish])
+    for solve in sp.get("maus.refine_eig.solve", []):
+        assert _inside(solve, sp.get("maus.refine_eig.round", [finish]))
 
 
 @pytest.mark.parametrize("run", list(RUNS))
@@ -196,6 +200,10 @@ def test_iteration_spans_count_the_iterations(run):
     if run in ("eig", "eig_panels", "eig_hermitian"):
         assert len(_spans(events, "maus.refine_eig.round")) >= 1
         assert not _spans(events, "maus.eig.straggler")
+        # a finisher call reads its factors 14 times: 2 rounds of 2
+        # pre-sweeps and 5 Newton steps, each step's two columns in one solve
+        assert len(_spans(events, "maus.refine_eig.solve")) == \
+            14 * len(_spans(events, "maus.refine_eig.round"))
 
 
 @pytest.mark.parametrize("run", list(RUNS))
