@@ -563,11 +563,12 @@ class MausSolver:
         for i in range(0, len(ks), CH):
             chunk = ks[i:i + CH]
             idx = torch.tensor(chunk, device=pop.v.device)
-            sig, U, V, res = refine_svd_triplets(
-                A64, pop.lam[idx].to(dt), pop.u[idx].to(dt), pop.v[idx].to(dt),
-                steps=5)
-            sig_h, U_h, V_h, res_h = (sig.cpu().numpy(), U.cpu().numpy(),
-                                      V.cpu().numpy(), res.cpu().numpy())
+            with span("maus.refine_svd.round"):
+                sig, U, V, res = refine_svd_triplets(
+                    A64, pop.lam[idx].to(dt), pop.u[idx].to(dt), pop.v[idx].to(dt),
+                    steps=5)
+                sig_h, U_h, V_h, res_h = (sig.cpu().numpy(), U.cpu().numpy(),
+                                          V.cpu().numpy(), res.cpu().numpy())
             for j, k in enumerate(chunk):
                 if np.isfinite(res_h[j]) and res_h[j] < residual[k]:
                     out[k] = (float(sig_h[j]), U_h[j], V_h[j], float(res_h[j]))
@@ -626,8 +627,10 @@ def _drive_chunked(cfg: SolverConfig, kn: ProblemKnowledge, A, b, seed: int,
     the last (which the caller saves). The chunks stop where one loop
     stops: the same stop condition is read after each (an SVD's against its
     dynamic target). A ``carry`` of None starts a fresh one, which the first
-    chunk's loop builds (``evolve._loop``). Returns ``(carry, stacked
-    metrics or None)``."""
+    chunk's loop builds (``evolve._loop``). A run that reaches
+    ``max_iterations`` with its stop condition unmet opens the count
+    ``maus.engine.capped`` once. Returns ``(carry, stacked metrics or
+    None)``."""
     def run(bound, with_metrics, carry0):
         args = (cfg, kn, A, b, seed, bound, target)
         kw = dict(carry0=carry0, caches=caches)
@@ -647,6 +650,10 @@ def _drive_chunked(cfg: SolverConfig, kn: ProblemKnowledge, A, b, seed: int,
                 cfg, target, carry)):
             break   # the caller saves the last carry
         save(carry)
+    if int(carry.iteration) >= max_iterations and not bool(
+            evolve_mod._stop_condition(cfg, target, carry)):
+        with span("maus.engine.capped"):
+            pass
     if not collect_metrics:
         return carry, None
     # then zero rows up to max_iterations, as one loop gives them

@@ -29,6 +29,7 @@ from ..ops.gmres import gmres_batched, jacobi_from_diag
 from ..ops.hessenberg import solve_shifted_via_hessenberg
 from ..ops.regularize import psi_magnitude, shift_diagonal
 from ..parallel.placement import diagonal, fro, left, on_slots, rows, rows_conj
+from ..utils.metrics import span
 
 # Eigen shift locking (step_eigen): a candidate keeps its carried (diverse)
 # shift until its eigenresidual drops below this fraction of the operand's
@@ -430,12 +431,13 @@ def step_svd(cfg: SolverConfig, A: torch.Tensor, pop: Population,
         pop = dataclasses.replace(pop, keys=rng.advance(pop.keys))
 
         # one block round: span{A·V} → Qu; project; QR; small SVD → Ritz
-        Qu, _ = torch.linalg.qr(rows(A, V).T)                   # (M, r)
-        Z = left(A, Qu.mH)                                      # (r, N)
-        Qv, Rz = torch.linalg.qr(Z.mH)                          # (N, r), (r, r)
-        Us, _, Vsh = torch.linalg.svd(Rz.mH)
-        U_ritz = Qu @ Us                                        # (M, r)
-        V_ritz = Qv @ Vsh.mH                                    # (N, r)
+        with span("maus.svd.block_round"):
+            Qu, _ = torch.linalg.qr(rows(A, V).T)               # (M, r)
+            Z = left(A, Qu.mH)                                  # (r, N)
+            Qv, Rz = torch.linalg.qr(Z.mH)                      # (N, r), (r, r)
+            Us, _, Vsh = torch.linalg.svd(Rz.mH)
+            U_ritz = Qu @ Us                                    # (M, r)
+            V_ritz = Qv @ Vsh.mH                                # (N, r)
 
         slot_idx = torch.arange(K, device=A.device) % r
         ovl = (V.conj() @ V_ritz).abs()                         # (K, r)

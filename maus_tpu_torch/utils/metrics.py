@@ -130,6 +130,12 @@ SPANS = (
     ("maus.engine.init", "the step, the carry (population, first Psi, the "
      "shared factorization) and the first stop check"),
     ("maus.engine.iteration", "one step and the stop check after it"),
+    ("maus.engine.capped", "once an evolve (MausSolver.evolve, the mesh paths' "
+     "drive) whose iterations reached max_iterations with its stop condition "
+     "unmet (a count)"),
+    ("maus.svd.block_round", "one block round of the SVD step: the thin QR of "
+     "A·Vᵀ, the projection, the thin QR of its adjoint, the small SVD and the "
+     "Ritz products (enqueue, but torch.linalg.svd waits for a card's work)"),
     ("maus.factor", "one shared factorization of the linear path: the "
      "engine's at init and on a Psi rung, or refinement's fresh QR (enqueue "
      "only)"),
@@ -144,6 +150,8 @@ SPANS = (
     ("maus.refine.gmres", "the GMRES-IR fallback of linear refinement"),
     ("maus.refine_eig.round", "one eigenpair finisher call over a chunk of "
      "leaders (a batched LU, Newton steps), through its host read"),
+    ("maus.refine_svd.round", "one SVD triplet finisher call over a chunk of "
+     "leaders (the Gram's batched LU, Newton steps), through its host read"),
     ("maus.refine_eig.solve", "one solve of a finisher (eigenpairs or "
      "triplets) against its chunk's LU factors, one or two columns in one "
      "read of the factors (a count, enqueue only)"),

@@ -9,8 +9,10 @@ without and once inside a CPU profile. The spans must be plain CPU
 operations (not user annotations, which the profiler mirrors on the device
 timeline), nest as their layers do, count the engine's iterations, the
 linear path's factorizations, the Hessenberg panels and the eigenpair
-finisher's chunks, and leave every answer bit-equal; with no
-profiler running ``span`` is one shared null context.
+finisher's chunks, the SVD's block rounds and its finisher's chunks, and
+leave every answer bit-equal; with no profiler running ``span`` is one
+shared null context. An evolve cut by ``max_iterations`` with its stop
+condition unmet opens ``maus.engine.capped`` once, on every path.
 """
 import logging
 
@@ -83,13 +85,39 @@ def _eig_hermitian():
     return maus.eig(H, tol=1e-7, num_candidates=30, device="cpu")
 
 
-def _svd():
-    return maus.svd(gen.low_rank_svd_matrix(5, 4), tol=1e-6, device="cpu")
+def _svd(**kw):
+    return maus.svd(gen.low_rank_svd_matrix(5, 4), tol=1e-6, device="cpu", **kw)
+
+
+def _separated_svd_operand(m, n, top, seed=0):
+    """U·diag(σ)·Vᴴ, complex128, Haar U (m×n) and V: σ = 0.8^k for k < top,
+    then a clustered logspace(−2, −4) tail."""
+    g = torch.Generator().manual_seed(seed)
+
+    def haar(rows, cols):
+        G = torch.complex(torch.randn(rows, cols, generator=g, dtype=torch.float64),
+                          torch.randn(rows, cols, generator=g, dtype=torch.float64))
+        q, r = torch.linalg.qr(G)
+        d = torch.diagonal(r)
+        return q * (d / d.abs())[None, :]
+
+    U, V = haar(m, n), haar(n, n)
+    sig = torch.cat([0.8 ** torch.arange(top, dtype=torch.float64),
+                     torch.logspace(-2.0, -4.0, n - top, dtype=torch.float64)])
+    return (U * sig[None, :]) @ V.mH
+
+
+def _svd_chunks():
+    """An SVD with more leaders than one finisher chunk of 8, whose
+    clustered tail keeps the dynamic target out of reach: it runs to
+    ``max_iterations``."""
+    return maus.svd(_separated_svd_operand(96, 48, 12), tol=1e-8, max_iterations=30,
+                    num_candidates=24, target_solutions=12, seed=1, device="cpu")
 
 
 RUNS = {"solve": _solve, "known_cond": _known_cond, "update_problem": _restaged,
         "eig": _eig, "eig_panels": _eig_panels, "eig_hermitian": _eig_hermitian,
-        "svd": _svd}
+        "svd": _svd, "svd_chunks": _svd_chunks}
 LINEAR = ("solve", "known_cond", "update_problem")
 
 # the spans each path runs (the GMRES-IR fallback is not expected on any)
@@ -101,13 +129,16 @@ LINEAR_ONLY = {"maus.factor", "maus.factor.implicit_q", "maus.refine.step"}
 # the eigenpair finisher's chunks and its solves; the straggler round is not
 # expected
 EIG_FINISH = {"maus.refine_eig.round", "maus.refine_eig.solve"}
+# the SVD's block rounds, its finisher's chunks and their solves
+SVD_PATH = {"maus.svd.block_round", "maus.refine_svd.round", "maus.refine_eig.solve"}
 EXPECTED = {"solve": SHARED | PROBE | LINEAR_ONLY,
             "known_cond": SHARED | LINEAR_ONLY,
             "update_problem": SHARED | PROBE | LINEAR_ONLY,
             "eig": SHARED | PROBE | EIG_FINISH,
             "eig_panels": SHARED | PROBE | EIG_FINISH | {"maus.hessenberg.panel"},
             "eig_hermitian": SHARED | EIG_FINISH,
-            "svd": SHARED | {"maus.refine_eig.solve"}}
+            "svd": SHARED | SVD_PATH,
+            "svd_chunks": SHARED | SVD_PATH | {"maus.engine.capped"}}
 
 _CACHE = {}
 
@@ -176,10 +207,17 @@ def test_spans_nest_as_the_layers_do(run):
         assert _inside(qr, sp["maus.factor"])
     for panel in sp.get("maus.hessenberg.panel", []):
         assert _inside(panel, [setup])
-    for rnd in sp.get("maus.refine_eig.round", []) + sp.get("maus.eig.straggler", []):
+    for rnd in sp.get("maus.refine_eig.round", []) + sp.get("maus.eig.straggler", []) \
+            + sp.get("maus.refine_svd.round", []):
         assert _inside(rnd, [finish])
     for solve in sp.get("maus.refine_eig.solve", []):
-        assert _inside(solve, sp.get("maus.refine_eig.round", [finish]))
+        assert _inside(solve, sp.get("maus.refine_eig.round", [])
+                       + sp.get("maus.refine_svd.round", []))
+    for rnd in sp.get("maus.svd.block_round", []):
+        assert _inside(rnd, sp["maus.engine.iteration"])
+    for capped in sp.get("maus.engine.capped", []):
+        assert _inside(capped, [engine])
+        assert capped[0] >= max(e for _, e in sp["maus.engine.iteration"])
 
 
 @pytest.mark.parametrize("run", list(RUNS))
@@ -204,6 +242,13 @@ def test_iteration_spans_count_the_iterations(run):
         # pre-sweeps and 5 Newton steps, each step's two columns in one solve
         assert len(_spans(events, "maus.refine_eig.solve")) == \
             14 * len(_spans(events, "maus.refine_eig.round"))
+    if run in ("svd", "svd_chunks"):
+        # one block round an iteration; a triplet finisher call reads its
+        # factors 7 times: 2 pre-sweeps and 5 Newton steps
+        assert len(_spans(events, "maus.svd.block_round")) == report.iterations
+        assert len(_spans(events, "maus.refine_svd.round")) >= 1
+        assert len(_spans(events, "maus.refine_eig.solve")) == \
+            7 * len(_spans(events, "maus.refine_svd.round"))
 
 
 @pytest.mark.parametrize("run", list(RUNS))
@@ -222,6 +267,74 @@ def test_spans_lists_every_name_emitted(run):
     named = {name for name, _ in metrics.SPANS}
     assert {e[0] for e in _traced(run)[2]} <= named
     assert all(doc and "\n" not in doc for _, doc in metrics.SPANS)
+
+
+def _names(run):
+    """The ``maus.*`` spans that ``run()`` opens, in time order, and its
+    report."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        report = run()
+    events = sorted((ev.start_ns(), ev.name())
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.name().startswith("maus."))
+    return [n for _, n in events], report
+
+
+def test_svd_finisher_opens_one_round_span_a_chunk(monkeypatch):
+    """``maus.refine_svd.round`` is one ``refine_svd_triplets`` call over a
+    chunk of at most 8 leaders; more leaders than a chunk take several."""
+    import maus_tpu_torch.solver.api as api
+
+    chunks, call = [], api.refine_svd_triplets
+
+    def counted(A64, sig0, *args, **kw):
+        chunks.append(int(sig0.shape[0]))
+        return call(A64, sig0, *args, **kw)
+
+    monkeypatch.setattr(api, "refine_svd_triplets", counted)
+    names, report = _names(_svd_chunks)
+    assert names.count("maus.refine_svd.round") == len(chunks) >= 2
+    assert max(chunks) == 8 and sum(chunks) >= len(report.solutions)
+
+
+def _solve_capped(iters):
+    A, b = _linear_operands()
+    return maus.solve(A, b, tol=1e-8, num_candidates=8, max_iterations=iters,
+                      config=_linear_config(), device="cpu")
+
+
+def _eig_capped(iters):
+    E = torch.as_tensor(gen.laplace_like_complex(8, make_hermitian=False)).to(C64)
+    cfg = maus.SolverConfig(dtype=C64, convergence_floor=eig_convergence_floor(C64, 8))
+    return maus.eig(E, tol=1e-7, num_candidates=30, max_iterations=iters, config=cfg,
+                    device="cpu")
+
+
+def _svd_capped_chunked(tmp_path):
+    return _svd(max_iterations=2, checkpoint_every=1,
+                checkpoint_path=str(tmp_path / "svd.ckpt"))
+
+
+# (run, whether its stop condition is unmet at max_iterations)
+CAPPED = {"svd_cut": (lambda tmp: _svd(max_iterations=2), True),
+          "svd_cut_in_chunks": (_svd_capped_chunked, True),
+          "svd_met": (lambda tmp: _svd(max_iterations=50), False),
+          "linear_cut": (lambda tmp: _solve_capped(1), True),
+          "linear_met": (lambda tmp: _solve_capped(100), False),
+          "eig_cut": (lambda tmp: _eig_capped(1), True),
+          "eig_met": (lambda tmp: _eig_capped(200), False)}
+
+
+@pytest.mark.parametrize("case", list(CAPPED))
+def test_capped_counts_an_evolve_cut_by_max_iterations_once(tmp_path, case):
+    run, cut = CAPPED[case]
+    names, report = _names(lambda: run(tmp_path))
+    assert names.count("maus.engine.capped") == (1 if cut else 0)
+    assert names.count("maus.engine.iteration") == report.iterations
+    if cut:
+        assert names[-1] != "maus.engine.capped"
+        assert names.index("maus.engine.capped") > max(
+            i for i, n in enumerate(names) if n == "maus.engine.iteration")
 
 
 def test_probe_opens_the_rinv_span_in_its_rinv_form_only():
